@@ -8,14 +8,38 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      started together);
   2. K1 (expansion) against its plain version on the full-width frame:
      integer-equal;
-  3. K2 (forward rasterize) against its plain version: <= 1e-4 on r, g, b,
-     T and depth, chunks_done equal, on 64+ tiles of the full-width frame
-     and on every tile of 192x128 frames;
-  4. parity gate: the tiled renderer against the O(N x P) reference,
-     2000 splats at 192x128, early_stop=0, alpha_clip=None, < 1e-3;
-  5. the main path: the trained fixture tiled to 1M splats, rendered at
-     1920x1080 from eye (0, 0, 2.8) through ``SplatRenderer``, capacity =
-     measured demand + 3%, overflow == 0; frame, stage and kernel times.
+  3. K2 (forward rasterize), 32-byte and 16-byte rows, against its plain
+     version: <= 1e-4 on r, g, b, T and depth, chunks_done equal, on 64
+     sampled tiles of the full-width frame and on every tile of 192x128
+     frames;
+  4. K4 (backward rasterize) against its plain version: every tile of the
+     192x128 gate scene for both row widths, clip 0.999 and none, with and
+     without a z-buffer, with 4- and 8-channel cotangents; then the
+     instances of 64 sampled tiles of the full-width frame; <= 1e-4 of each
+     gradient channel's largest |value| on the gate scene and 1e-3 on the
+     full-width frame, whose deepest tiles carry log T through thousands of
+     instances, summed in another order (16-byte rows: plus one bf16 ulp,
+     2^-7 of the value, where the two round f32 sums to bf16 apart);
+  5. K5, K6, K7 (segment sums) against their plain versions on the
+     full-width backward's rows (2.8M instances onto 1M gaussians): K6
+     bit-equal, K5/K7 within (run length) x 2^-23 x (sum of |rows|) per run;
+  6. parity gate: the tiled renderer against the O(N x P) reference, 2000
+     splats at 192x128, early_stop=0, alpha_clip=None, < 1e-3;
+  7. gradient gate: the same scene with 32-byte rows, early_stop=0 and
+     SPLATJAX_GRAD_GATHER=f32 (K5): gradients w.r.t. every
+     TrainableGaussians leaf against torch.autograd through
+     render_reference, atol 2e-3 x max, rtol 2e-3;
+  8. the main paths, each with the launch counts reset just before and read
+     just after:
+     a. serving: the trained fixture tiled to 1M splats, 1920x1080 from eye
+        (0, 0, 2.8), 10 frames through ``SplatRenderer`` (K1, K2);
+     b. training: ``fit()`` 6 Adam steps from that scene with seeded noise
+        on colors and opacities towards its 32-byte render, FitConfig
+        defaults (16-byte rows; K1, K2, K4, K7); the loss must fall;
+     c. one 32-byte gradient step (K6), and one under
+        SPLATJAX_GRAD_GATHER=f32 (K5);
+     capacity = the measured demand of both scenes + 3%, overflow == 0;
+     frame, step, stage and kernel times, device busy time and idle share.
 Then one line with the card's name and power limit, one JSON line with the
 kernel table, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints no result and exits with 1.
@@ -36,8 +60,14 @@ N_SPLATS = 1_000_000
 WIDTH, HEIGHT = 1920, 1080
 EYE = (0.0, 0.0, 2.8)
 FRAMES = 10
+TRAIN_STEPS = 6
+NOISE = 0.5            # std of the seeded noise on colors / logit opacities
 K2_TOL = 1e-4          # r, g, b, T, depth: kernel vs plain (f32 order)
+K4_TOL = 1e-4          # x each gradient channel's max |value| (f32 order)
+K4_TOL_FULL = 1e-3     # the same on the full-width frame (deep stacks)
+SEG_ULP = 2.0 ** -23   # K5/K7: run length x SEG_ULP x sum |rows| per run
 PARITY_TOL = 1e-3      # tiled renderer vs reference (viewer-parity budget)
+GRAD_TOL = 2e-3        # gradient gate: atol GRAD_TOL x max, rtol GRAD_TOL
 SAMPLE_TILES = 64
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -45,10 +75,20 @@ PEAK_F32 = 67e12
 # f32 operations per walked fragment in K2: the 6-term power polynomial as
 # 5 FMAs (10), the cutoff compare (1) and the alpha exp (1)
 K2_OPS_PER_FRAGMENT = 12
+# K4 per walked fragment, at the least: K2's 12 plus the 10 adds that fold
+# the fragment's sums into its instance's reduction
+K4_OPS_PER_FRAGMENT = 22
+LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -60,12 +100,12 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    sync()
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(stop) / reps
 
 
@@ -78,11 +118,11 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        sync()
     hits = [e for e in prof.key_averages() if kernel in e.key
             and e.device_type == torch.autograd.DeviceType.CUDA]
     if sum(e.count for e in hits) != reps:
@@ -109,21 +149,40 @@ def projected(scene, cam, early_stop):
     )
 
 
-def binned_rows(scene, cam, capacity, early_stop):
+def binned_rows(scene, cam, capacity, early_stop, packed16=False):
     """The K2 inputs of the main path: tile-sorted packed rows + bounds."""
     from splatjax_torch.ops.binning import (
         TileConfig, bin_gaussians, features_from_projection,
     )
-    from splatjax_torch.ops.rasterize import gather_rows, pack_feature_table
+    from splatjax_torch.ops.rasterize import gather_rows, pack_table
 
-    proj = projected(scene, cam, early_stop)
-    cfg = TileConfig(cam.width, cam.height)
-    b = bin_gaussians(proj, cfg, capacity)
-    if int(b.overflow) != 0:
-        raise AssertionError(f"overflow {int(b.overflow)} at {capacity}")
-    rows = gather_rows(pack_feature_table(features_from_projection(proj)),
-                       b.gauss_id)
+    import torch
+
+    with torch.no_grad():
+        proj = projected(scene, cam, early_stop)
+        cfg = TileConfig(cam.width, cam.height)
+        b = bin_gaussians(proj, cfg, capacity)
+        if int(b.overflow) != 0:
+            raise AssertionError(f"overflow {int(b.overflow)} at {capacity}")
+        rows = gather_rows(pack_table(features_from_projection(proj),
+                                      packed16), b.gauss_id)
     return cfg, b, rows
+
+
+def sample_tiles(b, cfg, device):
+    """The 32 busiest tiles and 32 others drawn with a fixed seed."""
+    import torch
+
+    per_tile = (b.ends - b.starts).long()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    busiest = torch.argsort(per_tile.cpu(), descending=True)
+    busiest = busiest[: SAMPLE_TILES // 2]
+    rest = torch.ones(cfg.num_tiles, dtype=torch.bool)
+    rest[busiest] = False
+    rest = rest.nonzero()[:, 0]
+    rand = rest[torch.randperm(rest.numel(), generator=g)]
+    tiles = torch.cat([busiest, rand[: SAMPLE_TILES - busiest.numel()]])
+    return tiles.sort().values.to(device)
 
 
 def check_k1(scene, cam, capacity):
@@ -139,7 +198,7 @@ def check_k1(scene, cam, capacity):
             cfg.tiles_x, cfg.num_tiles)
     tile_k, gid_k = expand_instances(*args)
     tile_p, gid_p = expand_instances_plain(*args)
-    torch.cuda.synchronize()
+    sync()
     if not (torch.equal(tile_k, tile_p) and torch.equal(gid_k, gid_p)):
         bad = int(((tile_k != tile_p) | (gid_k != gid_p)).sum())
         raise AssertionError(f"K1 differs from its plain version at {bad} "
@@ -182,64 +241,248 @@ def walked_instances(b, out) -> int:
     return int((stop - start).clamp_min(0).sum())
 
 
-def check_k2_small(gate_scene, gate_cam):
+def gate_zbuf(cfg, device):
     import torch
-    from splatjax_torch.ops.rasterize import (
-        rasterize_fwd, rasterize_fwd_plain, zbuffer_to_tiles,
-    )
+    from splatjax_torch.ops.rasterize import zbuffer_to_tiles
 
-    err = 0.0
-    cfg, b, rows = binned_rows(gate_scene, gate_cam, 1 << 16, 1e-4)
-    zb = zbuffer_to_tiles(torch.full((cfg.height, cfg.width), -2.45,
-                                     device=rows.device), cfg)
-    for clip, es, z in ((0.999, 1e-4, None), (None, 0.0, None),
-                        (0.999, 1e-4, zb)):
-        out_k = rasterize_fwd(rows, b.starts, b.ends, cfg, clip, es, z)
-        out_p = rasterize_fwd_plain(rows, b.starts, b.ends, cfg, clip, es,
-                                    z)
-        err = max(err, compare_k2(
-            out_k, out_p, f"all {cfg.num_tiles} tiles of "
-            f"{cfg.width}x{cfg.height}, clip={clip} early_stop={es} "
-            f"zbuf={'yes' if z is not None else 'no'}"))
-    return err
+    return zbuffer_to_tiles(torch.full((cfg.height, cfg.width), -2.45,
+                                       device=device), cfg)
 
 
-def check_k2_full(scene, cam, capacity):
-    import torch
+def check_k2_small(gate_scene, gate_cam, packed16):
     from splatjax_torch.ops.rasterize import (
         rasterize_fwd, rasterize_fwd_plain,
     )
 
-    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4)
-    args = (rows, b.starts, b.ends, cfg, 0.999, 1e-4)
-    out_k = rasterize_fwd(*args)
-    per_tile = (b.ends - b.starts).long()
-    g = torch.Generator(device="cpu").manual_seed(0)
-    busiest = torch.argsort(per_tile.cpu(), descending=True)
-    busiest = busiest[: SAMPLE_TILES // 2]
-    rest = torch.ones(cfg.num_tiles, dtype=torch.bool)
-    rest[busiest] = False
-    rest = rest.nonzero()[:, 0]
-    rand = rest[torch.randperm(rest.numel(), generator=g)]
-    tiles = torch.cat([busiest, rand[: SAMPLE_TILES - busiest.numel()]])
-    tiles = tiles.sort().values.to(rows.device)
-    out_p = rasterize_fwd_plain(*args, tiles=tiles)
+    err = 0.0
+    cfg, b, rows = binned_rows(gate_scene, gate_cam, 1 << 16, 1e-4,
+                               packed16)
+    zb = gate_zbuf(cfg, rows.device)
+    for clip, es, z in ((0.999, 1e-4, None), (None, 0.0, None),
+                        (0.999, 1e-4, zb)):
+        out_k = rasterize_fwd(rows, b.starts, b.ends, cfg, clip, es, z,
+                              packed16)
+        out_p = rasterize_fwd_plain(rows, b.starts, b.ends, cfg, clip, es,
+                                    z, packed16=packed16)
+        err = max(err, compare_k2(
+            out_k, out_p, f"{16 if packed16 else 32}-byte rows, all "
+            f"{cfg.num_tiles} tiles of {cfg.width}x{cfg.height}, clip={clip} "
+            f"early_stop={es} zbuf={'yes' if z is not None else 'no'}"))
+    return err
+
+
+def check_k2_full(scene, cam, capacity, packed16):
+    from splatjax_torch.ops.rasterize import (
+        rasterize_fwd, rasterize_fwd_plain,
+    )
+
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16)
+    args = (rows, b.starts, b.ends, cfg, 0.999, 1e-4, None)
+    out_k = rasterize_fwd(*args, packed16)
+    tiles = sample_tiles(b, cfg, rows.device)
+    out_p = rasterize_fwd_plain(*args, tiles=tiles, packed16=packed16)
     err = compare_k2(out_k[tiles], out_p,
-                     f"{tiles.numel()} sampled tiles of {cfg.width}x"
-                     f"{cfg.height}")
-    ms = kernel_ms(lambda: rasterize_fwd(*args), 10, "rasterize_fwd_kernel")
-    plain_ms = cuda_ms(lambda: rasterize_fwd_plain(*args), 1)
+                     f"{16 if packed16 else 32}-byte rows, {tiles.numel()} "
+                     f"sampled tiles of {cfg.width}x{cfg.height}")
+    ms = kernel_ms(lambda: rasterize_fwd(*args, packed16), 10,
+                   "rasterize_fwd_kernel")
+    plain_ms = cuda_ms(lambda: rasterize_fwd_plain(*args,
+                                                   packed16=packed16), 1)
     walked = walked_instances(b, out_k)
     p = cfg.pixels_per_tile
     b_ms, b_by = bound(
         walked * 32 + cfg.num_tiles * (8 * p * 4 + 8),
         walked * p * K2_OPS_PER_FRAGMENT,
     )
-    log(f"[k2] full frame: {int(b.num_instances)} instances, {walked} "
-        f"walked, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+    log(f"[k2] full frame, {16 if packed16 else 32}-byte rows: "
+        f"{int(b.num_instances)} instances, {walked} walked, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def k4_case(scene, cam, capacity, packed16, clip, zbuf, gch, seed=0):
+    """Forward by the kernel, then a seeded random planar cotangent."""
+    import torch
+    from splatjax_torch.ops.rasterize import rasterize_fwd
+
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16)
+    zb = gate_zbuf(cfg, rows.device) if zbuf else None
+    out = rasterize_fwd(rows, b.starts, b.ends, cfg, clip, 1e-4, zb,
+                        packed16)
+    g = torch.Generator(device=rows.device).manual_seed(seed)
+    g_out = torch.randn((cfg.num_tiles, gch, cfg.pixels_per_tile),
+                        generator=g, device=rows.device)
+    return cfg, b, (rows, b.starts, b.ends, out, g_out, cfg, clip, zb)
+
+
+def compare_k4(g_k, g_p, packed16, what, tol=K4_TOL):
+    """Max |kernel - plain| after checking it against K4_TOL x each
+    channel's max |value| (plus one bf16 ulp for packed rows)."""
+    from splatjax_torch.ops.segreduce import unpack_bf16_pairs
+
+    extra = 0.0
+    if packed16:
+        g_k, g_p = unpack_bf16_pairs(g_k), unpack_bf16_pairs(g_p)
+        extra = 2.0 ** -7 * g_p.abs()
+    scale = g_p.abs().amax(dim=0).clamp_min(1e-30)
+    err = (g_k - g_p).abs()
+    rel = err / scale
+    worst = rel.argmax(dim=0)
+    log(f"[k4]   per channel, max |err| / channel max: " + " ".join(
+        f"{float(rel[int(worst[c]), c]):.2e}" for c in range(10))
+        + "; instances over 1e-4: " + " ".join(
+        str(int((rel[:, c] > 1e-4).sum())) for c in range(10))
+        + "; |plain| / max at the worst: " + " ".join(
+        f"{float(g_p[int(worst[c]), c].abs() / scale[c]):.2e}"
+        for c in range(10)))
+    if not bool((err <= tol * scale + extra).all()):
+        raise AssertionError(f"K4 differs from plain ({what}): "
+                             f"{float(rel.max()):.3g} of a channel's max")
+    if not bool(g_k.isfinite().all()) or float(g_p.abs().max()) == 0.0:
+        raise AssertionError(f"K4 rows not finite or all zero ({what})")
+    e = float(err.max())
+    log(f"[k4] {what}: max |err| {e:.3g} ({float(rel.max()):.3g} "
+        "of a channel's max)")
+    return e
+
+
+def check_k4_small(gate_scene, gate_cam):
+    from splatjax_torch.ops.rasterize_vjp import (
+        rasterize_bwd, rasterize_bwd_plain,
+    )
+
+    err = 0.0
+    for packed16 in (False, True):
+        for clip in (0.999, None):
+            for zbuf in (False, True):
+                for gch in (4, 8):
+                    cfg, _, args = k4_case(gate_scene, gate_cam, 1 << 16,
+                                           packed16, clip, zbuf, gch)
+                    err = max(err, compare_k4(
+                        rasterize_bwd(*args, packed16=packed16),
+                        rasterize_bwd_plain(*args, packed16=packed16),
+                        packed16,
+                        f"{16 if packed16 else 32}-byte rows, all "
+                        f"{cfg.num_tiles} tiles of {cfg.width}x"
+                        f"{cfg.height}, clip={clip} "
+                        f"zbuf={'yes' if zbuf else 'no'} {gch}-channel "
+                        "cotangent"))
+    return err
+
+
+def check_k4_full(scene, cam, capacity, packed16):
+    """K4 on the full-width frame: the instances of 64 sampled tiles
+    against the plain version, kernel and plain times, bound. Returns the
+    numbers and the kernel's gradient rows (the segment sums' input)."""
+    import torch
+    from splatjax_torch.ops.rasterize_vjp import (
+        rasterize_bwd, rasterize_bwd_plain,
+    )
+
+    cfg, b, args = k4_case(scene, cam, capacity, packed16, 0.999, False, 4)
+    g_k = rasterize_bwd(*args, packed16=packed16)
+    tiles = sample_tiles(b, cfg, g_k.device)
+    g_p = rasterize_bwd_plain(*args, tiles=tiles, packed16=packed16)
+    idx = torch.cat([torch.arange(int(b.starts[t]), int(b.ends[t]),
+                                  device=g_k.device) for t in tiles])
+    deepest = int((b.ends - b.starts)[tiles].max())
+    width = 16 if packed16 else 32
+    err = compare_k4(g_k[idx], g_p[idx], packed16,
+                     f"{width}-byte rows, the {idx.numel()} instances of "
+                     f"{tiles.numel()} sampled tiles of {cfg.width}x"
+                     f"{cfg.height} (deepest walks {deepest} instances)",
+                     tol=K4_TOL_FULL)
+    ms = kernel_ms(lambda: rasterize_bwd(*args, packed16=packed16), 10,
+                   "rasterize_bwd_kernel")
+    plain_ms = cuda_ms(lambda: rasterize_bwd_plain(*args,
+                                                   packed16=packed16), 1)
+    out = args[3]
+    walked = walked_instances(b, out)
+    p = cfg.pixels_per_tile
+    out_bytes = 32 if packed16 else 64
+    b_ms, b_by = bound(
+        walked * (32 + out_bytes) + cfg.num_tiles * (8 + 8 * p * 4
+                                                     + 4 * p * 4),
+        walked * p * K4_OPS_PER_FRAGMENT,
+    )
+    log(f"[k4] full frame, {width}-byte rows: {walked} walked instances, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by), b, g_k
+
+
+def _check_runs(k, p, abs_sum, run_len, name):
+    tol = run_len[:, None].float() * SEG_ULP * abs_sum
+    err = (k - p).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name} differs from plain beyond (run length)"
+                             f" x 2^-23 x sum|rows|: max {float(err.max())}")
+    return float(err.max())
+
+
+def check_segreduce(b, g32, g16):
+    """K5, K6, K7 against their plain versions on the full-width
+    backward's rows; times, bounds and the library calls' times."""
+    import torch
+    from splatjax_torch.ops.binning import (
+        _effective_cum, _gid_order, quantize_grad_u16,
+    )
+    from splatjax_torch.ops import segreduce as sr
+
+    k = g32.shape[0]
+    eff = _effective_cum(b.cum, b.count, b.perm, b.cum_d, b.count_d,
+                         b.overflow, k)
+    n = eff.shape[0]
+    order = _gid_order(b.gauss_id)
+    run_len = torch.diff(eff.long(), prepend=eff.new_zeros(1).long())
+    total = int(eff[-1])
+    gid_sorted = b.gauss_id.index_select(0, order)[:total].long()
+    rows32 = g32.index_select(0, order)
+    packed_u16 = quantize_grad_u16(g32)[0].index_select(0, order)
+    rows16 = g16.index_select(0, order)
+    cases = (
+        ("segreduce_rows", sr.segment_reduce_rows,
+         sr.segment_reduce_rows_plain, rows32, rows32, 64,
+         "segreduce_f32_kernel"),
+        ("segreduce_u16", sr.segment_reduce_packed_u16,
+         sr.segment_reduce_packed_u16_plain, packed_u16,
+         sr.unpack_u16_pairs(packed_u16).float(), 32,
+         "segreduce_packed_kernel"),
+        ("segreduce_bf16", sr.segment_reduce_packed_bf16,
+         sr.segment_reduce_packed_bf16_plain, rows16,
+         sr.unpack_bf16_pairs(rows16), 32, "segreduce_packed_kernel"),
+    )
+    out = {}
+    for name, fn, plain, rows, decoded, row_bytes, kname in cases:
+        got, want = fn(rows, eff), plain(rows, eff)
+        sync()
+        if name == "segreduce_u16":
+            if not torch.equal(got, want):
+                raise AssertionError("K6 is not bit-equal to its plain "
+                                     "version")
+            err = 0.0
+        else:
+            abs_sum = sr.segment_reduce_rows_plain(decoded.abs(), eff)
+            err = _check_runs(got, want, abs_sum, run_len, name)
+        ms = kernel_ms(lambda: fn(rows, eff), 10, kname)
+        plain_ms = cuda_ms(lambda: plain(rows, eff), 3)
+        data = decoded[:total].contiguous()
+        seg_ms = cuda_ms(lambda: torch.segment_reduce(
+            data, "sum", lengths=run_len, axis=0), 10)
+        add_ms = cuda_ms(lambda: torch.zeros(
+            (n, 16), device=data.device).index_add_(0, gid_sorted, data), 10)
+        b_ms, b_by = bound(total * row_bytes + n * 4 + n * 64, total * 16)
+        log(f"[seg] {name}: {total} rows onto {n} gaussians, max |err| "
+            f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.segment_reduce {seg_ms:.4f} ms, index_add_ "
+            f"{add_ms:.4f} ms (on the decoded f32 rows), bound {b_ms:.4f} "
+            f"ms ({b_by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=seg_ms)
+    return out
 
 
 def parity_gate(gate_scene, gate_cam):
@@ -252,6 +495,50 @@ def parity_gate(gate_scene, gate_cam):
     if not err < PARITY_TOL:
         raise AssertionError(f"parity gate failed: max err {err}")
     log(f"[parity] 2000 splats 192x128 vs reference: max err {err:.3g}")
+
+
+def gradient_gate(gate_scene, gate_cam):
+    """Port gradients (32-byte rows, exact blend, f32 gather -> K5) against
+    torch.autograd through the O(N x P) reference, every leaf."""
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.reference import render_reference
+    from splatjax_torch.render import render
+    from splatjax_torch.scene import TrainableGaussians
+
+    params = TrainableGaussians.from_scene(gate_scene)
+    g = torch.Generator(device=gate_scene.device).manual_seed(1)
+    tgt = torch.randn((gate_cam.height, gate_cam.width, 4), generator=g,
+                      device=gate_scene.device)
+    prev = os.environ.get("SPLATJAX_GRAD_GATHER")
+    os.environ["SPLATJAX_GRAD_GATHER"] = "f32"
+    try:
+        kernels.reset_launches()
+        (render(params.to_scene(), gate_cam, early_stop=0.0) * tgt
+         ).sum().backward()
+        sync()
+        launched = dict(kernels.LAUNCHES)
+    finally:
+        if prev is None:
+            del os.environ["SPLATJAX_GRAD_GATHER"]
+        else:
+            os.environ["SPLATJAX_GRAD_GATHER"] = prev
+    got = torch.cat([getattr(params, k).grad.ravel() for k in LEAVES])
+    params.zero_grad()
+    (render_reference(params.to_scene(), gate_cam) * tgt).sum().backward()
+    want = torch.cat([getattr(params, k).grad.ravel() for k in LEAVES])
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if not (bool(got.isfinite().all()) and scale > 0 and bool(
+            (err <= GRAD_TOL * scale + GRAD_TOL * want.abs()).all())):
+        raise AssertionError(f"gradient gate failed: max err "
+                             f"{float(err.max())} at scale {scale}")
+    for name in ("rasterize_bwd", "segreduce_rows"):
+        if launched[name] == 0:
+            raise AssertionError(f"gradient gate skipped {name}: {launched}")
+    log(f"[grad] 2000 splats 192x128, 32-byte rows, f32 gather: max err "
+        f"{float(err.max()):.3g} = {float(err.max()) / scale:.3g} of the "
+        f"largest |gradient| {scale:.4g}; launches {launched}")
 
 
 def stage_times(scene, cam, capacity):
@@ -279,32 +566,236 @@ def stage_times(scene, cam, capacity):
     ev[4].record()
     tiles_to_image(out, cfg)
     ev[5].record()
-    torch.cuda.synchronize()
+    sync()
     names = ("project", "bin", "pack+gather", "rasterize", "assemble")
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def profile_frames(renderer, cam, frames: int = 5):
-    """Device busy time per frame and the kernels that take it, from
-    torch.profiler over ``frames`` frames."""
+def train_stage_times(params, cam, target, capacity, cfg):
+    """Device time of each stage of one 16-byte training step: the calls
+    the step makes, written out so CUDA events can sit between them."""
+    import torch
+    from splatjax_torch.ops.binning import (
+        TileConfig, bin_gaussians, features_from_projection,
+        segment_sum_by_gid_packed_bf16,
+    )
+    from splatjax_torch.ops.rasterize import (
+        gather_rows, pack_feature_table16, rasterize_fwd, tiles_to_image,
+    )
+    from splatjax_torch.ops.rasterize_vjp import (
+        image_cotangent_to_tiles, rasterize_bwd,
+    )
+    from splatjax_torch.train.fit import _optimizer
+    from splatjax_torch.train.loss import combined_loss
+
+    opt = _optimizer(params, cfg)
+    opt.zero_grad(set_to_none=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+    ev[0].record()
+    proj = projected(params.to_scene(), cam, cfg.early_stop)
+    ev[1].record()
+    tc = TileConfig(cam.width, cam.height)
+    with torch.no_grad():
+        b = bin_gaussians(proj, tc, capacity)
+    ev[2].record()
+    feat_n = features_from_projection(proj)
+    rows = gather_rows(pack_feature_table16(feat_n.detach()), b.gauss_id)
+    ev[3].record()
+    out = rasterize_fwd(rows, b.starts, b.ends, tc, cfg.alpha_clip,
+                        cfg.early_stop, None, True)
+    ev[4].record()
+    img = tiles_to_image(out, tc).requires_grad_()
+    combined_loss(img, target, ssim_weight=cfg.ssim_weight).backward()
+    ev[5].record()
+    g_rows = rasterize_bwd(rows, b.starts, b.ends, out,
+                           image_cotangent_to_tiles(img.grad, tc), tc,
+                           cfg.alpha_clip, None, True)
+    ev[6].record()
+    seg = segment_sum_by_gid_packed_bf16(g_rows, b.gauss_id, b.cum, b.count,
+                                         b.perm, b.cum_d, b.count_d,
+                                         b.overflow)
+    ev[7].record()
+    feat_n.backward(seg)
+    ev[8].record()
+    opt.step()
+    ev[9].record()
+    sync()
+    names = ("project", "bin", "pack16+gather", "K2 forward",
+             "assemble+loss fwd/bwd", "K4", "sort+gather+K7",
+             "autograd through projection", "Adam")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def profile_calls(fn, calls: int = 5):
+    """Device busy time per call and the kernels that take it, from
+    torch.profiler over ``calls`` calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    renderer.render(cam)
-    torch.cuda.synchronize()
+    fn()
+    sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            renderer.render(cam)
-        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        sync()
+    # device-side kernels only: a user annotation (Optimizer.step#Adam.step)
+    # spans kernels that are counted on their own
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / frames
-    launches = sum(e.count for e in kern) / frames
-    top = [(e.key, e.self_device_time_total / 1e3 / frames, e.count // frames)
-           for e in kern[:12]]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
+    launches = sum(e.count for e in kern) / calls
+    top = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
+           for e in kern[:14]]
     return busy_ms, launches, top
+
+
+def log_profile(tag, busy_ms, n_kernels, top, median_ms):
+    log(f"[{tag}] device busy {busy_ms:.3f} ms per call over "
+        f"{n_kernels:.0f} kernels, idle share "
+        f"{max(0.0, 1.0 - busy_ms / median_ms):.3f} of the median")
+    for name, ms, calls in top:
+        log(f"[{tag}]   {ms:8.4f} ms  x{calls:<3d} {name[:90]}")
+
+
+def demand(scene, cam, feature_bytes=32):
+    """Instances the frame needs (capacity 1024 plus the overflow)."""
+    import torch
+    from splatjax_torch.render import render
+
+    with torch.no_grad():
+        _, probe = render(scene, cam, capacity=1024, return_overflow=True,
+                          feature_bytes=feature_bytes)
+    return 1024 + int(probe)
+
+
+def noisy_start(scene):
+    """TrainableGaussians of ``scene`` with seeded noise on the raw colors
+    and logit opacities."""
+    import torch
+    from splatjax_torch.scene import TrainableGaussians
+
+    params = TrainableGaussians.from_scene(scene)
+    g = torch.Generator(device=scene.device).manual_seed(7)
+    with torch.no_grad():
+        for leaf in (params.colors, params.logit_opacities):
+            leaf.add_(NOISE * torch.randn(leaf.shape, generator=g,
+                                          device=leaf.device))
+    return params
+
+
+def serving_path(scene, cam, capacity):
+    """Path a: 10 frames through SplatRenderer. Returns the launches, the
+    frame times and the renderer."""
+    import torch
+    from splatjax_torch import SplatRenderer, kernels
+
+    renderer = SplatRenderer(scene=scene, capacity=capacity)
+    img, overflow = renderer.render(cam, return_overflow=True)
+    if int(overflow) != 0:
+        raise AssertionError(f"overflow {int(overflow)} at capacity "
+                             f"{capacity}")
+    kernels.reset_launches()
+    frame_ms = []
+    for _ in range(FRAMES):
+        sync()
+        t0 = time.perf_counter()
+        img = renderer.render(cam)
+        sync()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    if tuple(img.shape) != (HEIGHT, WIDTH, 4) or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError("full-width frame is not finite (H, W, 4)")
+    alpha = img[..., 3]
+    if not (float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0
+            and float(alpha.mean()) > 0.05):
+        raise AssertionError("full-width frame alpha out of range or empty")
+    log(f"[frame] {FRAMES} frames 1M splats {WIDTH}x{HEIGHT}: median "
+        f"{statistics.median(frame_ms):.3f} ms (all: "
+        f"{', '.join(f'{t:.3f}' for t in frame_ms)}); mean alpha "
+        f"{float(alpha.mean()):.4f}")
+    return launches, frame_ms, renderer
+
+
+def training_path(start, cam, target, capacity):
+    """Path b: fit() for TRAIN_STEPS steps, FitConfig defaults. Returns the
+    launches, the step times and the trained parameters."""
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.render import render
+    from splatjax_torch.train import FitConfig, fit
+
+    cfg = FitConfig(steps=TRAIN_STEPS, log_every=1, capacity=capacity)
+    sync()
+    kernels.reset_launches()
+    params, hist = fit(start, [cam], [target], cfg)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    for leaf in LEAVES:
+        if not bool(getattr(params, leaf).isfinite().all()):
+            raise AssertionError(f"parameter {leaf} is not finite")
+    with torch.no_grad():
+        _, overflow = render(params.to_scene(), cam, capacity=capacity,
+                             feature_bytes=cfg.feature_bytes,
+                             return_overflow=True)
+    if int(overflow) != 0:
+        raise AssertionError(f"overflow {int(overflow)} after training")
+    ends = [h["elapsed_s"] * 1e3 for h in hist]
+    step_ms = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
+    log(f"[train] fit() {TRAIN_STEPS} steps, 1M splats {WIDTH}x{HEIGHT}, "
+        f"16-byte rows: loss {' -> '.join(f'{x:.5f}' for x in losses)}; "
+        f"psnr {hist[0]['psnr']:.3f} -> {hist[-1]['psnr']:.3f} dB; step "
+        f"median {statistics.median(step_ms):.3f} ms (all: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)})")
+    return launches, step_ms, params, cfg
+
+
+def gradient_step_path(params, cam, target, capacity, mode):
+    """Path c: one 32-byte training step under SPLATJAX_GRAD_GATHER=mode.
+    Returns its launches."""
+    import dataclasses
+    from splatjax_torch import kernels
+    from splatjax_torch.train import FitConfig, make_train_step
+    from splatjax_torch.train.fit import _optimizer
+
+    cfg = dataclasses.replace(FitConfig(capacity=capacity),
+                              feature_bytes=32)
+    step = make_train_step([cam], cfg, capacity)
+    opt = _optimizer(params, cfg)
+    prev = os.environ.get("SPLATJAX_GRAD_GATHER")
+    os.environ["SPLATJAX_GRAD_GATHER"] = mode
+    try:
+        sync()
+        kernels.reset_launches()
+        loss, _, gnorm = step(params, opt, cam.modelview, cam.projection,
+                              target)
+        sync()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        if prev is None:
+            del os.environ["SPLATJAX_GRAD_GATHER"]
+        else:
+            os.environ["SPLATJAX_GRAD_GATHER"] = prev
+    if not (math.isfinite(float(loss)) and bool(gnorm.isfinite().all())):
+        raise AssertionError(f"32-byte step ({mode}) is not finite")
+    log(f"[step32] one 32-byte step, gather {mode}: loss {float(loss):.5f}; "
+        f"launches {launches}")
+    return launches
+
+
+def require(launches, names, path):
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{path} skipped {missing}: {launches}")
 
 
 def main() -> int:
@@ -314,13 +805,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from splatjax_torch import SplatRenderer, kernels, make_camera
+    from splatjax_torch import kernels, make_camera
     from splatjax_torch.io import load_splat, synthetic_scene, tile_scene
     from splatjax_torch.render import render
+    from splatjax_torch.train import make_train_step
 
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     paths = kernels.build()
-    log(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(paths)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         report = path.with_suffix(".log")
         for line in report.read_text(errors="replace").splitlines():
@@ -334,71 +829,105 @@ def main() -> int:
     t0 = time.perf_counter()
     scene = tile_scene(load_splat(FIXTURE), N_SPLATS)
     cam = make_camera(EYE, (0, 0, 0), width=WIDTH, height=HEIGHT)
-    _, probe = render(scene, cam, capacity=1024, return_overflow=True)
-    demand = 1024 + int(probe)
-    capacity = -(-int(demand * 1.03) // 1024) * 1024
-    log(f"[scene] {scene.num_gaussians} splats, demand {demand} instances, "
-        f"capacity {capacity} ({time.perf_counter() - t0:.1f} s)")
+    start = noisy_start(scene)
+    need = max(demand(scene, cam), demand(start.to_scene(), cam, 16))
+    capacity = -(-int(need * 1.03) // 1024) * 1024
+    log(f"[scene] {scene.num_gaussians} splats, demand {need} instances "
+        f"(max of the fixture scene and the noisy start), capacity "
+        f"{capacity} ({time.perf_counter() - t0:.1f} s)")
 
     k1 = check_k1(scene, cam, capacity)
-    k2_small_err = check_k2_small(gate_scene, gate_cam)
-    k2 = check_k2_full(scene, cam, capacity)
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_small_err)
+    k2_err = check_k2_small(gate_scene, gate_cam, False)
+    k2 = check_k2_full(scene, cam, capacity, False)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_err)
+    k2_16_err = check_k2_small(gate_scene, gate_cam, True)
+    k2_16 = check_k2_full(scene, cam, capacity, True)
+    k2_16["max_abs_err"] = max(k2_16["max_abs_err"], k2_16_err)
+    k4_err = check_k4_small(gate_scene, gate_cam)
+    k4_32, b_full, g32 = check_k4_full(scene, cam, capacity, False)
+    k4, _, g16 = check_k4_full(scene, cam, capacity, True)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_32["max_abs_err"],
+                            k4_err)
+    seg = check_segreduce(b_full, g32, g16)
+    del g32, g16
     parity_gate(gate_scene, gate_cam)
+    gradient_gate(gate_scene, gate_cam)
 
-    renderer = SplatRenderer(scene=scene, capacity=capacity)
-    img, overflow = renderer.render(cam, return_overflow=True)
-    if int(overflow) != 0:
-        raise AssertionError(f"overflow {int(overflow)} at capacity "
-                             f"{capacity}")
-    kernels.reset_launches()
-    frame_ms = []
-    for _ in range(FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = renderer.render(cam)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(kernels.LAUNCHES)
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"main path skipped a kernel: {launches}")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 4) or \
-            not bool(torch.isfinite(img).all()):
-        raise AssertionError("full-width frame is not finite (H, W, 4)")
-    alpha = img[..., 3]
-    if not (float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0
-            and float(alpha.mean()) > 0.05):
-        raise AssertionError("full-width frame alpha out of range or empty")
+    # -- the main paths, counts reset just before each ----------------------
+    launches_a, frame_ms, renderer = serving_path(scene, cam, capacity)
+    require(launches_a, ("expand", "rasterize_fwd"), "serving")
     stages = stage_times(scene, cam, capacity)
-    log(f"[frame] {FRAMES} frames 1M splats {WIDTH}x{HEIGHT}: median "
-        f"{statistics.median(frame_ms):.3f} ms (all: "
-        f"{', '.join(f'{t:.3f}' for t in frame_ms)}); mean alpha "
-        f"{float(alpha.mean()):.4f}")
     log("[stages] " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-    log(f"[launches] {launches} over {FRAMES} frames")
-    busy_ms, n_kernels, top = profile_frames(renderer, cam)
+    log(f"[launches] serving: {launches_a} over {FRAMES} frames")
     frame_med = statistics.median(frame_ms)
-    log(f"[profile] device busy {busy_ms:.3f} ms per frame over "
-        f"{n_kernels:.0f} kernels, idle share "
-        f"{max(0.0, 1.0 - busy_ms / frame_med):.3f} of the median frame")
-    for name, ms, calls in top:
-        log(f"[profile]   {ms:8.4f} ms  x{calls:<3d} {name[:90]}")
+    log_profile("profile", *profile_calls(lambda: renderer.render(cam)),
+                frame_med)
+
+    with torch.no_grad():
+        target = render(scene, cam, capacity=capacity)
+    launches_b, step_ms, params, cfg = training_path(start, cam, target,
+                                                     capacity)
+    require(launches_b, ("expand", "rasterize_fwd16", "rasterize_bwd",
+                         "segreduce_bf16"), "training")
+    log(f"[launches] training: {launches_b} over {TRAIN_STEPS} steps")
+    launches_c = gradient_step_path(params, cam, target, capacity, "i16")
+    require(launches_c, ("expand", "rasterize_fwd", "rasterize_bwd",
+                         "segreduce_u16"), "32-byte step")
+    launches_d = gradient_step_path(params, cam, target, capacity, "f32")
+    require(launches_d, ("rasterize_bwd", "segreduce_rows"),
+            "32-byte f32-gather step")
+
+    tstages = train_stage_times(params, cam, target, capacity, cfg)
+    log("[train-stages] " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in tstages.items())
+        + f"; sum {sum(tstages.values()):.3f} ms")
+    from splatjax_torch.train.fit import _optimizer
+
+    opt = _optimizer(params, cfg)
+    step = make_train_step([cam], cfg, capacity)
+    log_profile("train-profile", *profile_calls(
+        lambda: step(params, opt, cam.modelview, cam.projection, target), 3),
+        statistics.median(step_ms))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)
+    total = {n: launches_a[n] + launches_b[n] + launches_c[n] + launches_d[n]
+             for n in launches_a}
+    csrc = "splatjax_torch/csrc/"
     table = [
         dict(name="expand_instances", route="cuda",
-             source="splatjax_torch/csrc/expand.cu",
+             source=csrc + "expand.cu",
              replaces="splatjax/ops/expand.py:95",
-             launches=launches["expand"], library_ms=None, **k1),
+             launches=total["expand"], library_ms=None, **k1),
         dict(name="rasterize_fwd", route="cuda",
-             source="splatjax_torch/csrc/rasterize_fwd.cu",
+             source=csrc + "rasterize_fwd.cu",
              replaces="splatjax/ops/rasterize.py:678",
-             launches=launches["rasterize_fwd"], library_ms=None, **k2),
+             launches=total["rasterize_fwd"], library_ms=None, **k2),
+        dict(name="rasterize_fwd16", route="cuda",
+             source=csrc + "rasterize_fwd.cu",
+             replaces="splatjax/ops/rasterize.py:678",
+             launches=total["rasterize_fwd16"], library_ms=None, **k2_16),
+        dict(name="rasterize_bwd", route="cuda",
+             source=csrc + "rasterize_bwd.cu",
+             replaces="splatjax/ops/rasterize_vjp.py:97",
+             launches=total["rasterize_bwd"], library_ms=None, **k4),
+        dict(name="segment_reduce_rows", route="cuda",
+             source=csrc + "segreduce.cu",
+             replaces="splatjax/ops/segreduce.py:44",
+             launches=total["segreduce_rows"], **seg["segreduce_rows"]),
+        dict(name="segment_reduce_packed_u16", route="cuda",
+             source=csrc + "segreduce.cu",
+             replaces="splatjax/ops/segreduce.py:143",
+             launches=total["segreduce_u16"], **seg["segreduce_u16"]),
+        dict(name="segment_reduce_packed_bf16", route="cuda",
+             source=csrc + "segreduce.cu",
+             replaces="splatjax/ops/segreduce.py:388",
+             launches=total["segreduce_bf16"], **seg["segreduce_bf16"]),
     ]
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -8,16 +8,23 @@ the caller passes ``device="cpu"``.
 """
 from splatjax_torch.camera import Camera, look_at, make_camera, perspective
 from splatjax_torch.render import render
-from splatjax_torch.scene import GaussianScene, scene_from_numpy
+from splatjax_torch.scene import (
+    GaussianScene,
+    TrainableGaussians,
+    scene_from_numpy,
+    trainable_from_numpy,
+)
 from splatjax_torch.viewer import SplatRenderer
 
 __all__ = [
     "Camera",
     "GaussianScene",
     "SplatRenderer",
+    "TrainableGaussians",
     "look_at",
     "make_camera",
     "perspective",
     "render",
     "scene_from_numpy",
+    "trainable_from_numpy",
 ]

@@ -1,7 +1,8 @@
-// Forward tile rasterizer (K2) on 32-byte packed instance rows.
+// Forward tile rasterizer (K2) on packed instance rows, 32-byte viewer rows
+// or 16-byte training rows (template parameter PACKED16).
 //
 // Replaces splatjax/ops/rasterize.py::_fwd_kernel (the Pallas kernel called
-// by rasterize_cm_fwd), 32-byte row decode. The TPU kernel streams
+// by rasterize_cm_fwd), both row decodes. The TPU kernel streams
 // chunk-major feature blocks through a DMA ring, evaluates the Gaussian
 // power as a (P, 6) x (6, 128) MXU product and turns the within-chunk
 // transmittance scan into triangular matmuls, then flips its (P, C)
@@ -35,10 +36,17 @@
 //   splatjax's coefficient formulation so fragments on the exp(-4) cutoff
 //   fall the same way;
 // * fragments outside the support have alpha == 0 exactly and are skipped,
-//   which leaves every sum unchanged.
+//   which leaves every sum unchanged;
+// * the 16-byte rows decode exactly as splatjax's unpack_chunk16 (mean at
+//   1/8 px with a 2048 px bias, bf16 conic halves, u16 opacity, RGB8, f32
+//   depth in lane 4); the fragment math after the decode is the same f32
+//   code for both layouts. splatjax's 16-byte mode also switches to
+//   single-pass bf16 MXU scans; this kernel does not (f32 throughout).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -48,6 +56,7 @@ constexpr int CHUNK = 128;
 constexpr int OUT_ROWS = 8;
 constexpr float LOG_OM_MIN = -60.0f;
 
+template <bool PACKED16>
 __global__ void __launch_bounds__(P)
 rasterize_fwd_kernel(const int4* __restrict__ rows,
                      const int* __restrict__ starts,
@@ -83,17 +92,10 @@ rasterize_fwd_kernel(const int4* __restrict__ rows,
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
     if (p >= lo && p < hi) {
-      const long long k = (long long)base + p;
-      const int4 a = __ldg(rows + 2 * k);
-      const int4 b = __ldg(rows + 2 * k + 1);
-      const float mx = __int_as_float(a.x), my = __int_as_float(a.y);
-      const float ca = __int_as_float(a.z), cb = __int_as_float(a.w);
-      const float cc = __int_as_float(b.x);
-      const float inv = 1.0f / 65535.0f;
-      const unsigned rg = (unsigned)b.y, bo = (unsigned)b.z;
-      const float opa = (float)(bo & 0xFFFFu) * inv;
-      const float lnopa = logf(fmaxf(opa, 1e-30f));
-      const float mxl = mx - ox, myl = my - oy;
+      const Decoded d = decode_row<PACKED16>(rows, (long long)base + p);
+      const float ca = d.ca, cb = d.cb, cc = d.cc;
+      const float lnopa = logf(fmaxf(d.opa, 1e-30f));
+      const float mxl = d.mx - ox, myl = d.my - oy;
       s_coef[0][p] =
           -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa;
       s_coef[1][p] = ca * mxl + cb * myl;
@@ -102,10 +104,10 @@ rasterize_fwd_kernel(const int4* __restrict__ rows,
       s_coef[4][p] = -cb;
       s_coef[5][p] = -0.5f * cc;
       s_thr[p] = lnopa - 4.0f;
-      s_col[0][p] = (float)(rg >> 16) * inv;
-      s_col[1][p] = (float)(rg & 0xFFFFu) * inv;
-      s_col[2][p] = (float)(bo >> 16) * inv;
-      s_col[3][p] = __int_as_float(b.w);
+      s_col[0][p] = d.r;
+      s_col[1][p] = d.g;
+      s_col[2][p] = d.b;
+      s_col[3][p] = d.depth;
     }
     __syncthreads();
 
@@ -150,17 +152,25 @@ rasterize_fwd_kernel(const int4* __restrict__ rows,
 
 }  // namespace
 
-// rows: (K, 8) int32 packed instance rows, tile-sorted; starts/ends:
-// (num_tiles,) int32; zbuf: (num_tiles, 256) f32 camera z or null;
-// out: (num_tiles, 8, 256) f32.
+// rows: (K, 8) int32 packed instance rows, tile-sorted (16-byte training
+// rows when packed16); starts/ends: (num_tiles,) int32; zbuf:
+// (num_tiles, 256) f32 camera z or null; out: (num_tiles, 8, 256) f32.
 extern "C" int splat_rasterize_fwd(const int* rows, const int* starts,
                                    const int* ends, const float* zbuf,
                                    float* out, int num_tiles, int tiles_x,
                                    int has_clip, float log_clip,
                                    int clamp_log_om, float log_eps,
-                                   cudaStream_t stream) {
-  rasterize_fwd_kernel<<<num_tiles, P, 0, stream>>>(
-      reinterpret_cast<const int4*>(rows), starts, ends, zbuf, out, tiles_x,
-      has_clip, log_clip, clamp_log_om, log_eps);
+                                   int packed16, cudaStream_t stream) {
+  if (num_tiles == 0) return 0;
+  const int4* r = reinterpret_cast<const int4*>(rows);
+  if (packed16) {
+    rasterize_fwd_kernel<true><<<num_tiles, P, 0, stream>>>(
+        r, starts, ends, zbuf, out, tiles_x, has_clip, log_clip,
+        clamp_log_om, log_eps);
+  } else {
+    rasterize_fwd_kernel<false><<<num_tiles, P, 0, stream>>>(
+        r, starts, ends, zbuf, out, tiles_x, has_clip, log_clip,
+        clamp_log_om, log_eps);
+  }
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,14 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``. A
-library is named by the hash of its source and flags, so an edited source
-builds anew at first use; the build goes to ``build/splatjax_torch/`` at
-the repository root. Nothing is built or loaded at import time.
+library is named by the hash of its source, the shared headers and the
+flags, so an edited source builds anew at first use; the build goes to
+``build/splatjax_torch/`` at the repository root. Nothing is built or
+loaded at import time.
 
-``LAUNCHES`` counts kernel launches per library; each wrapper adds one
-where it launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches per kernel (a library can hold more
+than one); each wrapper adds one where it launches its kernel, and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -26,13 +28,20 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "splatjax_torch"
 SOURCES = {
     "expand": "expand.cu",
     "rasterize_fwd": "rasterize_fwd.cu",
+    "rasterize_bwd": "rasterize_bwd.cu",
+    "segreduce": "segreduce.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {name: 0 for name in SOURCES}
+# counter -> launches: K1, K2 (32-byte rows), K2 (16-byte rows), K4, K5,
+# K6, K7
+LAUNCHES = {name: 0 for name in (
+    "expand", "rasterize_fwd", "rasterize_fwd16", "rasterize_bwd",
+    "segreduce_rows", "segreduce_u16", "segreduce_bf16",
+)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -55,7 +64,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Build path of library ``name``, keyed by its source, the shared
+    headers of ``csrc/`` and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -107,11 +120,12 @@ def function(lib: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
     return _functions[key]
 
 
-def check_launch(lib: str, err: int) -> None:
-    """Raise on a launch error; count the launch otherwise."""
+def check_launch(counter: str, err: int) -> None:
+    """Raise on a launch error; count the launch under ``counter``
+    otherwise."""
     if err != 0:
-        raise RuntimeError(f"{lib} kernel launch failed: cudaError {err}")
-    LAUNCHES[lib] += 1
+        raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
+    LAUNCHES[counter] += 1
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -1,4 +1,5 @@
-"""Tile binning, forward half (PyTorch port of ``splatjax/ops/binning.py``).
+"""Tile binning and its transpose (PyTorch port of
+``splatjax/ops/binning.py``).
 
 1. per-gaussian tile span from the projected bbox;
 2. a stable depth sort of the N gaussians, zero-instance ones keyed +inf to
@@ -11,16 +12,38 @@
 
 Capacity truncation drops the depth-farthest instances. The whole path
 stays on the device: ``num_instances`` and ``overflow`` are 0-d tensors.
+
+The transpose of the per-instance row gather (the backward's path back to
+gaussians) is :func:`segment_sum_by_gid`: a stable sort by gid, a row
+gather, and per-gaussian run sums (K5/K6/K7, :mod:`.segreduce`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
 from splatjax_torch.ops.expand import expand_instances
 from splatjax_torch.ops.projection import ProjectedGaussians
+from splatjax_torch.ops.segreduce import (
+    segment_reduce_packed_bf16,
+    segment_reduce_packed_u16,
+    segment_reduce_rows,
+)
+
+
+def _grad_gather_mode() -> str:
+    """Packing of the backward's gradient-row gather, read at call time
+    from ``SPLATJAX_GRAD_GATHER`` (the variable splatjax reads):
+
+      "i16"  (default) per-channel-scaled int16 pairs in int32 lanes, summed
+             exactly by K6; per-term error channel_max / 65534;
+      "bf16" bf16-rounded rows, summed by K5; per-term error 2^-9 relative;
+      "f32"  unpacked f32 rows, summed by K5: the exact transpose.
+    """
+    return os.environ.get("SPLATJAX_GRAD_GATHER", "i16")
 
 # Unpacked per-gaussian feature row layout (f32):
 # 0: mean2d.x  1: mean2d.y  2: conic.a  3: conic.b  4: conic.c
@@ -96,6 +119,72 @@ def features_from_projection(proj: ProjectedGaussians) -> torch.Tensor:
         ],
         dim=-1,
     ).to(torch.float32)
+
+
+def _effective_cum(cum, count, perm, cum_d, count_d, overflow, k: int
+                   ) -> torch.Tensor:
+    """Per-gaussian run ends (N,) int32 in gid-sorted instance order,
+    corrected for capacity truncation (the depth-farthest instances are
+    the ones dropped). Both forms are computed and one is selected on the
+    device, so the host never waits on ``overflow``."""
+    del count
+    inc_d = torch.minimum((k - (cum_d - count_d)).clamp_min(0), count_d)
+    eff_count = torch.zeros_like(inc_d).scatter_(0, perm.long(), inc_d)
+    truncated = torch.cumsum(eff_count, dim=0, dtype=torch.int32)
+    return torch.where(overflow > 0, truncated, cum.to(torch.int32))
+
+
+def _gid_order(gid: torch.Tensor) -> torch.Tensor:
+    """Instances grouped by gaussian: a stable sort by gid, which equals
+    splatjax's (gid, iota) two-key sort."""
+    return torch.sort(gid, stable=True).indices
+
+
+def quantize_grad_u16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, 16) f32 rows -> ((K, 8) int32 biased-u16 pairs, (16,) scale):
+    q = round(g / scale) with scale = channel max / 32767, lane c holding
+    ``((q[c+8] + 32768) << 16) | (q[c] + 32768)`` (K6's input)."""
+    cmax = g.abs().amax(dim=0)
+    scale = torch.where(cmax > 0, cmax, torch.ones_like(cmax)) \
+        * (1.0 / 32767.0)
+    q = torch.round(g / scale).clamp(-32767.0, 32767.0)
+    u = (q + 32768.0).to(torch.int32)
+    return (u[:, 8:] << 16) | u[:, :8], scale
+
+
+def segment_sum_by_gid(g: torch.Tensor, gid: torch.Tensor, cum, count,
+                       perm, cum_d, count_d, overflow) -> torch.Tensor:
+    """Transpose of the per-instance row gather: (K, C) f32 instance-major
+    gradient rows -> (N, C) per-gaussian sums. Sort by gid, gather the rows
+    into per-gaussian runs, sum each run (K6 for the default "i16" mode at
+    C == 16, else K5). Instances past the capacity cut carry gid N-1 and
+    zero rows; they sort after gaussian N-1's run and enter no sum."""
+    k, c = g.shape
+    eff_cum = _effective_cum(cum, count, perm, cum_d, count_d, overflow, k)
+    order = _gid_order(gid)
+    mode = _grad_gather_mode()
+    if mode == "i16" and c == 16:
+        packed, scale = quantize_grad_u16(g)
+        sums = segment_reduce_packed_u16(packed.index_select(0, order),
+                                         eff_cum)
+        return sums * scale
+    if mode in ("i16", "bf16") and c % 2 == 0:
+        rows = g.to(torch.bfloat16).index_select(0, order).float()
+    else:
+        rows = g.index_select(0, order)
+    return segment_reduce_rows(rows, eff_cum)
+
+
+def segment_sum_by_gid_packed_bf16(gp: torch.Tensor, gid: torch.Tensor, cum,
+                                   count, perm, cum_d, count_d, overflow
+                                   ) -> torch.Tensor:
+    """Transpose of the gather for the 16-byte backward's rows: (K, 8)
+    int32 bf16 pairs as K4 writes them (channel c low, c + 8 high) ->
+    (N, 16) f32 per-gaussian sums (K7)."""
+    k = gp.shape[0]
+    eff_cum = _effective_cum(cum, count, perm, cum_d, count_d, overflow, k)
+    return segment_reduce_packed_bf16(gp.index_select(0, _gid_order(gid)),
+                                      eff_cum)
 
 
 def gaussian_tile_span(proj: ProjectedGaussians, cfg: TileConfig):

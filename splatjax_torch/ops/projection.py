@@ -162,9 +162,14 @@ def _project_f32(
     c = (t1 * u1).sum(dim=-1) + 0.3
 
     mid = 0.5 * (a + c)
+    # the sqrt argument is guarded too, as in splatjax: at r2 == 0
+    # (isotropic or degenerate covariances) sqrt's backward is 0/0 = NaN
+    # even under the outer where, and it would poison every gradient
     r2 = ((a - c) / 2.0).square() + b.square()
-    radius = torch.where(r2 > 0.0, r2.clamp_min(0.0).sqrt(),
-                         torch.zeros_like(r2))
+    r2_pos = r2 > 0.0
+    radius = torch.where(
+        r2_pos, torch.where(r2_pos, r2, torch.ones_like(r2)).sqrt(),
+        torch.zeros_like(r2))
     lam1 = mid + radius
     lam2 = torch.clamp_min(mid - radius, 0.1)
 
@@ -201,25 +206,28 @@ def _project_f32(
         dim=-1,
     )
 
-    # axis-aligned extent of the rendered ellipse {0.5 d^T conic d <= 4}
-    cov_xx = lam1_eff * dvx * dvx + lam2_eff * dvy * dvy
-    cov_yy = lam1_eff * dvy * dvy + lam2_eff * dvx * dvx
-    bbox_half = torch.stack(
-        [(8.0 * cov_xx.clamp_min(0.0)).sqrt(),
-         (8.0 * cov_yy.clamp_min(0.0)).sqrt()],
-        dim=-1,
-    )
+    # axis-aligned extent of the rendered ellipse {0.5 d^T conic d <= 4};
+    # index-only (it feeds the tile spans), so it carries no gradient and
+    # its sqrt's need no guard for the backward
+    with torch.no_grad():
+        cov_xx = lam1_eff * dvx * dvx + lam2_eff * dvy * dvy
+        cov_yy = lam1_eff * dvy * dvy + lam2_eff * dvx * dvx
+        bbox_half = torch.stack(
+            [(8.0 * cov_xx.clamp_min(0.0)).sqrt(),
+             (8.0 * cov_yy.clamp_min(0.0)).sqrt()],
+            dim=-1,
+        )
+        if support_eps is not None and support_eps > 0.0:
+            t_eff = torch.clamp(
+                opacities.clamp_min(1e-30).log()
+                - float(math.log(support_eps)),
+                0.0, 4.0,
+            )
+            shrink = torch.where(t_eff > 0.0, (t_eff * 0.25).sqrt(),
+                                 torch.zeros_like(t_eff))
+            bbox_half = bbox_half * shrink[:, None]
 
     depth = z
-    if support_eps is not None and support_eps > 0.0:
-        t_eff = torch.clamp(
-            opacities.clamp_min(1e-30).log()
-            - float(math.log(support_eps)),
-            0.0, 4.0,
-        )
-        shrink = torch.where(t_eff > 0.0, (t_eff * 0.25).sqrt(),
-                             torch.zeros_like(t_eff))
-        bbox_half = bbox_half * shrink[:, None]
     if max_scales is None:
         diag = torch.stack(
             [cov3d[:, 0, 0], cov3d[:, 1, 1], cov3d[:, 2, 2]], -1

@@ -1,13 +1,21 @@
 """Forward tile rasterizer (K2), row packing and image assembly (PyTorch
 port of the forward half of ``splatjax/ops/rasterize.py``).
 
-Instances move as 32-byte packed int32 rows, the layout splatjax packs, so
-both packages quantize color and opacity identically:
+Instances move as packed int32 rows, 8 lanes wide, in one of splatjax's two
+layouts, so both packages quantize identically. The 32-byte viewer rows:
 
   lane 0-4: f32 bits of mean2d.x, mean2d.y, conic a, b, c
   lane 5:   (r_u16 << 16) | g_u16      color quantized to 1/65535
   lane 6:   (b_u16 << 16) | o_u16
   lane 7:   f32 bits of camera depth
+
+and the 16-byte training rows (``packed16``; the training default):
+
+  lane 0:   (mx_u16 << 16) | my_u16    mean at 1/8 px, biased by 2048 px
+  lane 1:   (conic.a bf16 << 16) | conic.b bf16
+  lane 2:   (conic.c bf16 << 16) | opacity u16
+  lane 3:   (r_u8 << 24) | (g_u8 << 16) | (b_u8 << 8)
+  lane 4:   f32 bits of camera depth;  lanes 5-7: zero
 
 The rasterizer's output is planar ``(T, 8, P)`` per tile: rows r, g, b,
 T_final, chunks_done, expected depth, log T_final, 0. Tiles are y-up with
@@ -27,6 +35,8 @@ from splatjax_torch.ops.binning import TileConfig
 
 CHUNK = 128          # instances per early-stop chunk (globally aligned)
 PACKED_ROWS = 8
+MEAN16_STEP = 0.125  # 16-byte rows: px per fixed-point mean unit
+MEAN16_BIAS = 2048.0  # 16-byte rows: px added before quantizing the mean
 # log1p(-alpha) floor standing in for an opaque fragment (alpha == 1)
 _LOG_OM_MIN = -60.0
 # tiles per step of the plain version: bounds its (tiles, P, CHUNK) f32
@@ -36,7 +46,7 @@ _PLAIN_TILE_BATCH = 256
 _ARGTYPES = (
     [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-    + [ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -60,6 +70,88 @@ def pack_feature_table(feat_n: torch.Tensor) -> torch.Tensor:
         ],
         dim=1,
     ).contiguous()
+
+
+def _bf16_bits_hi(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 holding the value's bf16 bit pattern in the high half
+    (round to nearest even, as splatjax's ``astype(bfloat16)``)."""
+    u = x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return u << 16
+
+
+def _quant8(x: torch.Tensor) -> torch.Tensor:
+    return torch.floor(x.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.int32)
+
+
+def _quant_mean16(x: torch.Tensor) -> torch.Tensor:
+    return torch.floor((x + MEAN16_BIAS) * (1.0 / MEAN16_STEP) + 0.5
+                       ).clamp(0.0, 65535.0).to(torch.int32)
+
+
+def pack_feature_table16(feat_n: torch.Tensor) -> torch.Tensor:
+    """Unpacked (N, >=10) f32 per-gaussian features -> packed (N, 8) int32
+    16-byte training rows (bit-equal to splatjax's
+    ``pack_feature_table16``)."""
+    mxq, myq = _quant_mean16(feat_n[:, 0]), _quant_mean16(feat_n[:, 1])
+    ca, cb, cc = (_bf16_bits_hi(feat_n[:, i]) for i in (2, 3, 4))
+    r8, g8, b8 = (_quant8(feat_n[:, i]) for i in (5, 6, 7))
+    zero = torch.zeros_like(mxq)
+    return torch.stack(
+        [
+            (mxq << 16) | myq,
+            ca | ((cb >> 16) & 0xFFFF),
+            cc | _quant16(feat_n[:, 8]),
+            (r8 << 24) | (g8 << 16) | (b8 << 8),
+            feat_n[:, 9].contiguous().view(torch.int32),
+            zero, zero, zero,
+        ],
+        dim=1,
+    )
+
+
+def pack_table(feat_n: torch.Tensor, packed16: bool = False
+               ) -> torch.Tensor:
+    """(N, >=10) f32 features -> (N, 8) int32 rows of either layout."""
+    return (pack_feature_table16 if packed16 else pack_feature_table)(feat_n)
+
+
+def pack_feature_rows(feat_fm: torch.Tensor, packed16: bool = False
+                      ) -> torch.Tensor:
+    """Unpacked feature-major (>=10, K) f32 rows (splatjax's layout) ->
+    packed instance-major (K, 8) int32 rows, the layout the port's kernels
+    read."""
+    return pack_table(feat_fm.T, packed16)
+
+
+def decode_rows(rows: torch.Tensor, packed16: bool = False
+                ) -> tuple[torch.Tensor, ...]:
+    """Packed (..., 8) int32 rows -> f32 (mx, my, ca, cb, cc, r, g, b, opa,
+    depth), each shaped like ``rows[..., 0]``: splatjax's ``unpack_chunk``
+    or ``unpack_chunk16``, instance-major."""
+    f32 = torch.float32
+    rf = rows.view(f32)
+    if not packed16:
+        inv = 1.0 / 65535.0
+        rg, bo = rows[..., 5], rows[..., 6]
+        return (rf[..., 0], rf[..., 1], rf[..., 2], rf[..., 3], rf[..., 4],
+                ((rg >> 16) & 0xFFFF).to(f32) * inv,
+                (rg & 0xFFFF).to(f32) * inv,
+                ((bo >> 16) & 0xFFFF).to(f32) * inv,
+                (bo & 0xFFFF).to(f32) * inv,
+                rf[..., 7])
+    l0, l1, l2, l3 = rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3]
+    hi = -65536                                        # 0xFFFF0000
+    inv255 = 1.0 / 255.0
+    return (((l0 >> 16) & 0xFFFF).to(f32) * MEAN16_STEP - MEAN16_BIAS,
+            (l0 & 0xFFFF).to(f32) * MEAN16_STEP - MEAN16_BIAS,
+            (l1 & hi).view(f32),
+            (l1 << 16).view(f32),
+            (l2 & hi).view(f32),
+            ((l3 >> 24) & 255).to(f32) * inv255,
+            ((l3 >> 16) & 255).to(f32) * inv255,
+            ((l3 >> 8) & 255).to(f32) * inv255,
+            (l2 & 0xFFFF).to(f32) * (1.0 / 65535.0),
+            rf[..., 4])
 
 
 def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
@@ -112,18 +204,19 @@ def rasterize_fwd(rows: torch.Tensor, starts: torch.Tensor,
                   ends: torch.Tensor, cfg: TileConfig,
                   alpha_clip: Optional[float] = None,
                   early_stop: float = 1e-4,
-                  zbuf: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  zbuf: Optional[torch.Tensor] = None,
+                  packed16: bool = False) -> torch.Tensor:
     """Composite every tile front to back over its instances
     ``rows[starts[t]:ends[t]]``; returns planar (T, 8, P) f32.
 
-    rows: (K, 8) int32 packed instance rows in tile order; starts/ends:
-    (T,) int32; zbuf: optional (T, P, 1) camera-z buffer (fragments at or
-    behind it are discarded). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    rows: (K, 8) int32 packed instance rows in tile order (16-byte training
+    rows when ``packed16``); starts/ends: (T,) int32; zbuf: optional
+    (T, P, 1) camera-z buffer (fragments at or behind it are discarded).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     dev = _check_raster_inputs(rows, starts, ends, zbuf, cfg)
     if dev.type == "cpu":
         return rasterize_fwd_plain(rows, starts, ends, cfg, alpha_clip,
-                                   early_stop, zbuf)
+                                   early_stop, zbuf, packed16=packed16)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((cfg.num_tiles, 8, cfg.pixels_per_tile),
@@ -137,9 +230,10 @@ def rasterize_fwd(rows: torch.Tensor, starts: torch.Tensor,
             cfg.num_tiles, cfg.tiles_x, int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
-            kernels.stream_of(dev),
+            int(packed16), kernels.stream_of(dev),
         )
-    kernels.check_launch("rasterize_fwd", err)
+    kernels.check_launch("rasterize_fwd16" if packed16 else "rasterize_fwd",
+                         err)
     return out
 
 
@@ -148,8 +242,8 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
                         alpha_clip: Optional[float] = None,
                         early_stop: float = 1e-4,
                         zbuf: Optional[torch.Tensor] = None,
-                        tiles: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        tiles: Optional[torch.Tensor] = None,
+                        packed16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`rasterize_fwd`, vectorised over
     tiles, pixels and the instances of one chunk. ``tiles`` (1-D indices)
     renders only those tiles, returning (len(tiles), 8, P)."""
@@ -159,16 +253,13 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
         tiles = torch.arange(cfg.num_tiles, device=dev)
     tiles = tiles.to(dev).long()
     p_n = cfg.pixels_per_tile
-    pix = torch.arange(p_n, device=dev)
-    x = (pix % cfg.tile_w).to(f32) + 0.5 - 0.5 * cfg.tile_w
-    y = (pix // cfg.tile_w).to(f32) + 0.5 - 0.5 * cfg.tile_h
+    x, y = pixel_coords(cfg, dev)
     basis = (x, y, x * x, x * y, y * y)
     lc = log_clip(alpha_clip)
     clamp = not clip_bounds_alpha(alpha_clip)
     log_eps = _log_eps(early_stop)
     lane = torch.arange(CHUNK, device=dev)
     k_rows = rows.shape[0]
-    rows_f = rows.view(f32)
     outs = []
     for b0 in range(0, tiles.shape[0], _PLAIN_TILE_BATCH):
         tb = tiles[b0:b0 + _PLAIN_TILE_BATCH]
@@ -190,34 +281,12 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
             k = astart[:, None] + c * CHUNK + lane[None, :]      # (B, C)
             in_range = (k >= st[:, None]) & (k < en[:, None])
             kc = k.clamp(0, max(k_rows - 1, 0))
-            rf = rows_f[kc]                                      # (B, C, 8)
-            ri = rows[kc]
-            mxl = rf[..., 0] - ox[:, None]
-            myl = rf[..., 1] - oy[:, None]
-            ca, cb, cc = rf[..., 2], rf[..., 3], rf[..., 4]
-            rg, bo = ri[..., 5], ri[..., 6]
-            inv = 1.0 / 65535.0
-            col = torch.stack(
-                [((rg >> 16) & 0xFFFF).to(f32) * inv,
-                 (rg & 0xFFFF).to(f32) * inv,
-                 ((bo >> 16) & 0xFFFF).to(f32) * inv,
-                 rf[..., 7]],
-                dim=-1,
-            )                                                    # (B, C, 4)
-            opa = (bo & 0xFFFF).to(f32) * inv
-            lnopa = opa.clamp_min(1e-30).log()
-            coef = (
-                -0.5 * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl
-                + lnopa,
-                ca * mxl + cb * myl,
-                cc * myl + cb * mxl,
-                -0.5 * ca,
-                -cb,
-                -0.5 * cc,
-            )
-            power = coef[0][:, None, :]
-            for cf, bs in zip(coef[1:], basis):
-                power = power + cf[:, None, :] * bs[None, :, None]
+            f = decode_rows(rows[kc], packed16)                  # (B, C)
+            mxl = f[0] - ox[:, None]
+            myl = f[1] - oy[:, None]
+            col = torch.stack([f[5], f[6], f[7], f[9]], dim=-1)  # (B, C, 4)
+            power, lnopa = fragment_power(mxl, myl, f[2], f[3], f[4], f[8],
+                                          basis)
             valid = (power >= (lnopa - 4.0)[:, None, :]) \
                 & in_range[:, None, :]
             if zb is not None:
@@ -248,6 +317,34 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
     if not outs:
         return torch.zeros((0, 8, p_n), dtype=f32, device=dev)
     return torch.cat(outs, dim=0)
+
+
+def pixel_coords(cfg: TileConfig, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P,) tile-centred pixel coordinates: half-integers in [-7.5, 7.5],
+    exact in f32 (the kernels' basis origin)."""
+    pix = torch.arange(cfg.pixels_per_tile, device=dev)
+    x = (pix % cfg.tile_w).to(torch.float32) + 0.5 - 0.5 * cfg.tile_w
+    y = (pix // cfg.tile_w).to(torch.float32) + 0.5 - 0.5 * cfg.tile_h
+    return x, y
+
+
+def fragment_power(mxl, myl, ca, cb, cc, opa, basis):
+    """Log alpha before the clip, (B, P, C), from splatjax's per-instance
+    polynomial coefficients in tile-centred coordinates; returns it with
+    log opacity (B, C). ``basis`` is (x, y, x^2, xy, y^2) over pixels."""
+    lnopa = opa.clamp_min(1e-30).log()
+    coef = (
+        -0.5 * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa,
+        ca * mxl + cb * myl,
+        cc * myl + cb * mxl,
+        -0.5 * ca,
+        -cb,
+        -0.5 * cc,
+    )
+    power = coef[0][:, None, :]
+    for cf, bs in zip(coef[1:], basis):
+        power = power + cf[:, None, :] * bs[None, :, None]
+    return power, lnopa
 
 
 def tiles_to_image(out_tiles: torch.Tensor, cfg: TileConfig,

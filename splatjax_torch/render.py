@@ -1,10 +1,16 @@
-"""End-to-end rendering: scene + camera -> (H, W, 4) image (PyTorch port of
-the forward path of ``splatjax/render.py``).
+"""End-to-end differentiable rendering: scene + camera -> (H, W, 4) image
+(PyTorch port of ``splatjax/render.py``'s ``render``).
 
 covariances -> EWA projection and culls -> tile binning (expansion
 kernel) -> packed-row gather -> forward rasterize kernel -> image. Every
-step runs on the scene's device; on a CUDA device the two kernels of
+step runs on the scene's device; on a CUDA device the kernels of
 :mod:`splatjax_torch.kernels` carry the expansion and the rasterization.
+
+The image is differentiable w.r.t. every scene tensor that requires grad
+(and the background): the gather + rasterize step is a
+``torch.autograd.Function`` whose backward runs the backward rasterize
+kernel and the per-gaussian segment sum (:mod:`.ops.rasterize_vjp`);
+torch autograd covers projection and covariances.
 """
 from __future__ import annotations
 
@@ -21,12 +27,13 @@ from splatjax_torch.ops.binning import (
 )
 from splatjax_torch.ops.projection import project_gaussians
 from splatjax_torch.ops.rasterize import (
-    gather_rows,
-    pack_feature_table,
-    rasterize_fwd,
     tiles_to_depth,
     tiles_to_image,
     zbuffer_to_tiles,
+)
+from splatjax_torch.ops.rasterize_vjp import (
+    rasterize_gathered,
+    render_image_gathered,
 )
 from splatjax_torch.scene import (
     GaussianScene,
@@ -60,8 +67,9 @@ def resolve_alpha_clip(alpha_clip, viewer_exact: bool) -> Optional[float]:
 
 def resolve_feature_bytes(feature_bytes, viewer_exact: bool) -> int:
     """Resolve the packed instance-row width. "auto" = 32 (full-precision
-    rows). The 16-byte training rows belong to the training slice of the
-    port (ROADMAP.md, queue 2) and raise until then."""
+    rows, inside the 1e-3 viewer-parity budget). 16 selects the
+    fixed-point / bf16 / RGBA8 training rows: the training default, and a
+    speed knob for redraw, not a parity mode."""
     if isinstance(feature_bytes, str):
         if feature_bytes != "auto":
             raise ValueError("feature_bytes must be 16, 32 or 'auto', got "
@@ -74,18 +82,12 @@ def resolve_feature_bytes(feature_bytes, viewer_exact: bool) -> int:
         raise ValueError(
             "feature_bytes=16 is not a parity mode; use 32 with viewer_exact"
         )
-    if fb == 16:
-        raise NotImplementedError(
-            "feature_bytes=16 (16-byte training rows) is not ported yet: it "
-            "comes with the training slice (ROADMAP.md queue 2, K2's "
-            "16-byte decode)"
-        )
     return fb
 
 
 def _render_impl(scene: GaussianScene, modelview, projection, width, height,
                  *, capacity, alpha_clip, early_stop, viewer_exact, cutout,
-                 background, zbuf, return_depth):
+                 background, zbuf, return_depth, packed16):
     dev = scene.device
     cov3d = build_covariances(scene.quats, scene.scales)
     if viewer_exact:
@@ -100,18 +102,23 @@ def _render_impl(scene: GaussianScene, modelview, projection, width, height,
         support_eps=None if viewer_exact else early_stop,
     )
     cfg = TileConfig(width, height)
-    binned = bin_gaussians(proj, cfg, capacity)
-    rows = gather_rows(pack_feature_table(features_from_projection(proj)),
-                       binned.gauss_id)
+    with torch.no_grad():
+        b = bin_gaussians(proj, cfg, capacity)
+    feat_n = features_from_projection(proj)
     zbuf_tiles = None if zbuf is None else zbuffer_to_tiles(
         zbuf.to(dev), cfg)
-    out_tiles = rasterize_fwd(rows, binned.starts, binned.ends, cfg,
-                              alpha_clip=alpha_clip, early_stop=early_stop,
-                              zbuf=zbuf_tiles)
     bg = None if background is None else background.to(dev, torch.float32)
+    res = (b.gauss_id, b.starts, b.ends, b.cum, b.count, b.perm, b.cum_d,
+           b.count_d, b.overflow)
+    if not return_depth:
+        # image-level backward: K4 takes the image cotangent directly
+        img = render_image_gathered(feat_n, *res, bg, zbuf_tiles, cfg,
+                                    alpha_clip, early_stop, packed16)
+        return img, None, b.overflow
+    out_tiles, _ = rasterize_gathered(feat_n, *res, zbuf_tiles, cfg,
+                                      alpha_clip, early_stop, packed16)
     img = tiles_to_image(out_tiles, cfg, bg)
-    depth = tiles_to_depth(out_tiles, cfg) if return_depth else None
-    return img, depth, binned.overflow
+    return img, tiles_to_depth(out_tiles, cfg), b.overflow
 
 
 def _as_tensor(x, dev) -> Optional[torch.Tensor]:
@@ -152,10 +159,12 @@ def render(
       zbuf: optional (H, W) camera-z buffer (row 0 top, -inf = empty).
       model: optional (4, 4) object -> world transform.
       return_depth: also return the (H, W) alpha-weighted camera z.
-      feature_bytes: "auto" or 32; 16 raises NotImplementedError.
-    Returns the image, then depth and overflow when asked for.
+      feature_bytes: "auto" (32), 32, or 16 for the training rows.
+    Returns the image, then depth and overflow when asked for. The image
+    (and depth) are differentiable w.r.t. the scene's tensors and the
+    background.
     """
-    resolve_feature_bytes(feature_bytes, viewer_exact)
+    fb = resolve_feature_bytes(feature_bytes, viewer_exact)
     dev = scene.device
     if capacity is None:
         capacity = default_capacity(scene.num_gaussians)
@@ -182,6 +191,7 @@ def render(
         background=_as_tensor(background, dev),
         zbuf=_as_tensor(zbuf, dev),
         return_depth=return_depth,
+        packed16=fb == 16,
     )
     out = (img,)
     if return_depth:

@@ -60,11 +60,72 @@ def scene_from_numpy(d: Mapping[str, Optional[np.ndarray]], device="cuda"
     def conv(a):
         if a is None:
             return None
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(a, dtype=np.float32))
-        ).to(dev)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return GaussianScene(**{k: conv(d.get(k)) for k in _FIELDS})
+
+
+class TrainableGaussians(torch.nn.Module):
+    """Raw optimization parameters (port of splatjax's
+    ``TrainableGaussians``), each an ``nn.Parameter``; activations follow
+    the 3DGS convention: exp on scales, sigmoid on opacity and color,
+    normalized quaternions."""
+
+    LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors",
+              "sh")
+
+    def __init__(self, means, log_scales, quats, logit_opacities, colors,
+                 sh=None):
+        super().__init__()
+        self.means = torch.nn.Parameter(means)              # (N, 3)
+        self.log_scales = torch.nn.Parameter(log_scales)    # (N, 3)
+        self.quats = torch.nn.Parameter(quats)              # (N, 4) w,x,y,z
+        self.logit_opacities = torch.nn.Parameter(logit_opacities)  # (N,)
+        self.colors = torch.nn.Parameter(colors)            # (N, 3) raw
+        self.sh = None if sh is None else torch.nn.Parameter(sh)
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.means.shape[0]
+
+    def to_scene(self) -> GaussianScene:
+        q = self.quats / (
+            torch.linalg.norm(self.quats, dim=-1, keepdim=True) + 1e-12)
+        return GaussianScene(
+            means=self.means,
+            scales=torch.exp(self.log_scales),
+            quats=q,
+            colors=torch.sigmoid(self.colors),
+            opacities=torch.sigmoid(self.logit_opacities),
+            sh=self.sh,
+        )
+
+    @staticmethod
+    def from_scene(scene: GaussianScene) -> "TrainableGaussians":
+        eps = 1e-6
+        col = scene.colors.clamp(eps, 1.0 - eps)
+        opa = scene.opacities.clamp(eps, 1.0 - eps)
+        return TrainableGaussians(
+            means=scene.means.detach().clone(),
+            log_scales=torch.log(scene.scales.clamp_min(1e-12)).detach(),
+            quats=scene.quats.detach().clone(),
+            logit_opacities=(torch.log(opa) - torch.log1p(-opa)).detach(),
+            colors=(torch.log(col) - torch.log1p(-col)).detach(),
+            sh=None if scene.sh is None else scene.sh.detach().clone(),
+        )
+
+
+def trainable_from_numpy(d: Mapping[str, Optional[np.ndarray]],
+                         device="cuda") -> TrainableGaussians:
+    """Build :class:`TrainableGaussians` from numpy leaves keyed like
+    splatjax's (``means, log_scales, quats, logit_opacities, colors`` and
+    optional ``sh``), as contiguous float32 parameters on ``device``."""
+    dev = resolve_device(device)
+    return TrainableGaussians(**{
+        k: None if d.get(k) is None else torch.from_numpy(
+            np.array(d[k], dtype=np.float32)).to(dev)
+        for k in TrainableGaussians.LEAVES
+    })
 
 
 def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:

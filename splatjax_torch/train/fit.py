@@ -1,0 +1,209 @@
+"""Fit-from-scratch training loop: Adam over all Gaussian parameters
+(PyTorch port of ``splatjax/train/fit.py``, one device).
+
+Optimizes means / scales / rotations / opacities / colors (and SH) against
+target images through the differentiable tiled renderer, with per-leaf
+learning rates as in standard 3DGS practice. Not ported yet: adaptive
+density control (``densify=``), checkpoint/resume (``checkpoint_dir=``,
+``resume=``) and multi-device steps (``mesh=``, ``band_axis=``); each
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from splatjax_torch.camera import Camera
+from splatjax_torch.device import resolve_device
+from splatjax_torch.render import default_capacity, render
+from splatjax_torch.scene import GaussianScene, TrainableGaussians
+from splatjax_torch.train.loss import combined_loss, psnr
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """splatjax's ``FitConfig``: same fields and defaults."""
+
+    steps: int = 2000
+    lr_means: float = 1.6e-4
+    lr_scales: float = 5e-3
+    lr_quats: float = 1e-3
+    lr_opacities: float = 5e-2
+    lr_colors: float = 2.5e-2
+    lr_sh: float = 1.25e-3
+    ssim_weight: float = 0.2
+    alpha_clip: float = 0.999
+    early_stop: float = 1e-4
+    capacity: Optional[int] = None
+    log_every: int = 100
+    # 16-byte training rows (fixed-point mean / bf16 conic / RGBA8 color);
+    # 32 for full-precision rows
+    feature_bytes: int = 16
+    # steps per call of the step function; the port runs them as a Python
+    # loop of single steps (same order, same result), so this only groups
+    # logging and the summed densify signal
+    steps_per_call: int = 1
+
+
+def _optimizer(params: TrainableGaussians, cfg: FitConfig
+               ) -> torch.optim.Adam:
+    """Adam with one parameter group per leaf and its learning rate
+    (optax's adam and torch's Adam apply the same update)."""
+    rates = {
+        "means": cfg.lr_means,
+        "log_scales": cfg.lr_scales,
+        "quats": cfg.lr_quats,
+        "logit_opacities": cfg.lr_opacities,
+        "colors": cfg.lr_colors,
+        "sh": cfg.lr_sh,
+    }
+    groups = [{"params": [getattr(params, name)], "lr": lr}
+              for name, lr in rates.items()
+              if getattr(params, name) is not None]
+    return torch.optim.Adam(groups)
+
+
+def make_train_step(cameras: Sequence[Camera], cfg: FitConfig,
+                    capacity: int) -> Callable:
+    """Build ``step(params, opt, modelview, projection, target) -> (loss,
+    psnr, gnorm)``: one render, loss, backward and Adam update of
+    ``params`` in place. loss/psnr are 0-d tensors of the step's (pre-
+    update) render; gnorm is the (N,) norm of the means' gradient.
+
+    With ``cfg.steps_per_call = k > 1`` the step takes stacked (k, 4, 4)
+    matrices and (k, H, W, 4) targets, runs k steps in order and returns
+    the last step's loss/psnr and the sum of the k gnorm vectors."""
+    w, h = cameras[0].width, cameras[0].height
+
+    def one_step(params, opt, modelview, projection, target):
+        cam = Camera(modelview=modelview, projection=projection,
+                     width=w, height=h)
+        opt.zero_grad(set_to_none=True)
+        img = render(params.to_scene(), cam, capacity=capacity,
+                     alpha_clip=cfg.alpha_clip, early_stop=cfg.early_stop,
+                     feature_bytes=cfg.feature_bytes)
+        loss = combined_loss(img, target, ssim_weight=cfg.ssim_weight)
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            return loss.detach(), psnr(img, target), \
+                params.means.grad.norm(dim=-1)
+
+    if cfg.steps_per_call <= 1:
+        return one_step
+
+    def step_multi(params, opt, mvs, prs, targets):
+        gnorm = None
+        for j in range(mvs.shape[0]):
+            loss, p, gn = one_step(params, opt, mvs[j], prs[j], targets[j])
+            gnorm = gn if gnorm is None else gnorm + gn
+        return loss, p, gnorm
+
+    return step_multi
+
+
+def fit(
+    initial: TrainableGaussians | GaussianScene,
+    cameras: Sequence[Camera],
+    targets: Sequence[torch.Tensor],
+    cfg: FitConfig = FitConfig(),
+    *,
+    checkpoint_fn: Optional[Callable[[int, TrainableGaussians], None]] = None,
+    checkpoint_every: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    densify=None,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    mesh=None,
+    band_axis: Optional[str] = None,
+):
+    """Optimize gaussians to match target images on the parameters' device.
+    Returns (params, history); ``params`` is updated in place (a
+    ``GaussianScene`` start is converted first).
+
+    targets: (H, W, 3|4) tensors aligned with ``cameras`` (all cameras share
+    one size); step i renders view i mod len(cameras). history holds
+    {"step", "loss", "psnr", "elapsed_s"} every ``log_every`` steps and at
+    the last step. ``checkpoint_fn(step, params)`` runs every
+    ``checkpoint_every`` steps."""
+    for name, value in (("densify", densify),
+                        ("checkpoint_dir", checkpoint_dir),
+                        ("mesh", mesh), ("band_axis", band_axis)):
+        if value is not None:
+            raise NotImplementedError(
+                f"fit({name}=...) is not ported yet; see ROADMAP.md")
+    if resume:
+        raise NotImplementedError("fit(resume=True) is not ported yet; see "
+                                  "ROADMAP.md")
+    if isinstance(initial, GaussianScene):
+        params = TrainableGaussians.from_scene(initial)
+    else:
+        params = initial
+    dev = params.means.device
+    capacity = cfg.capacity or default_capacity(params.num_gaussians)
+    step_fn = make_train_step(cameras, cfg, capacity)
+    opt = _optimizer(params, cfg)
+    mvs = [c.modelview.to(dev, torch.float32) for c in cameras]
+    prs = [c.projection.to(dev, torch.float32) for c in cameras]
+    targets = [torch.as_tensor(t, device=dev)[..., :4].to(torch.float32)
+               for t in targets]
+
+    k = max(cfg.steps_per_call, 1)
+    if k > 1 and cfg.steps % k:
+        raise ValueError(f"steps ({cfg.steps}) must be a multiple of "
+                         f"steps_per_call ({k})")
+    history = []
+    t_start = time.time()
+    for i in range(0, cfg.steps, k):
+        vis = [(i + j) % len(cameras) for j in range(k)]
+        if k > 1:
+            loss, p, _ = step_fn(
+                params, opt,
+                torch.stack([mvs[v] for v in vis]),
+                torch.stack([prs[v] for v in vis]),
+                torch.stack([targets[v] for v in vis]),
+            )
+        else:
+            loss, p, _ = step_fn(params, opt, mvs[vis[0]], prs[vis[0]],
+                                 targets[vis[0]])
+        if cfg.log_every and (i % cfg.log_every < k or i + k >= cfg.steps):
+            rec = {
+                "step": i + k - 1,
+                "loss": float(loss),
+                "psnr": float(p),
+                "elapsed_s": time.time() - t_start,
+            }
+            history.append(rec)
+            if log_fn is not None:
+                log_fn(rec)
+        done = i + k
+        if checkpoint_fn is not None and checkpoint_every and (
+                done % checkpoint_every < k):
+            checkpoint_fn(done, params)
+    return params, history
+
+
+def init_random(n: int, generator: torch.Generator, *, extent: float = 1.0,
+                initial_scale: float = 0.02, device="cuda"
+                ) -> TrainableGaussians:
+    """Random initialization for fit-from-scratch, drawn on the CPU from
+    ``generator`` (so a seed gives the same start on every device)."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    means = (torch.rand((n, 3), generator=generator, dtype=f32) * 2.0 - 1.0
+             ) * extent
+    quats = torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=f32).repeat(n, 1)
+    quats = quats + 0.01 * torch.randn((n, 4), generator=generator,
+                                       dtype=f32)
+    colors = torch.randn((n, 3), generator=generator, dtype=f32) * 0.3
+    return TrainableGaussians(
+        means=means.to(dev),
+        log_scales=torch.full((n, 3), float(torch.log(
+            torch.tensor(initial_scale, dtype=f32))), dtype=f32, device=dev),
+        quats=quats.to(dev),
+        logit_opacities=torch.full((n,), -1.0, dtype=f32, device=dev),
+        colors=colors.to(dev),
+    )

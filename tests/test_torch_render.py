@@ -155,10 +155,21 @@ def test_splat_renderer_surface():
 
 
 def test_unported_paths_raise():
-    scene = st.scene_from_numpy(_params(n=16), device="cpu")
-    _, ct = _cams(32, 32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        st.render(scene, ct, feature_bytes=16)
+    # 16-byte training rows render now: the image against splatjax's
+    # 16-byte image, within 1e-2 (splatjax's 16-byte mode runs its scans
+    # as single bf16 MXU passes; the port stays in f32), and through
+    # SplatRenderer too
+    p = _params(n=300, seed=33)
+    scene = st.scene_from_numpy(p, device="cpu")
+    cj, ct = _cams(W, H)
+    want = np.asarray(j_render(JScene(**{k: jnp.asarray(v)
+                                          for k, v in p.items()}),
+                               cj, feature_bytes=16))
+    got = st.render(scene, ct, feature_bytes=16)
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2)
+    r = st.SplatRenderer(scene=scene, feature_bytes=16, device="cpu")
+    torch.testing.assert_close(r.render(ct), got, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="resort_interval"):
         st.SplatRenderer(scene=scene, resort_interval=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ply"):
