@@ -29,7 +29,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      SPLATJAX_GRAD_GATHER=f32 (K5): gradients w.r.t. every
      TrainableGaussians leaf against torch.autograd through
      render_reference, atol 2e-3 x max, rtol 2e-3;
-  8. the main paths, each with the launch counts reset just before and read
+  8. K3 (fused cached-viewer forward) against its plain version: <= 1e-4
+     on r, g, b, T and depth, chunks_done equal, on every tile of the
+     192x128 gate scene with bins built at its camera and drawn there and
+     at a moved eye (clip 0.999 and none, early stop 1e-4 and 0), then on
+     64 sampled tiles of the full-width frame at an orbit eye;
+  9. fused quality gate: the full-width 16-byte fused redraw at the bins'
+     camera within 1e-3 of the 32-byte render, and no further from it than
+     the packed 16-byte cached redraw (K2-16);
+ 10. the main paths, each with the launch counts reset just before and read
      just after:
      a. serving: the trained fixture tiled to 1M splats, 1920x1080 from eye
         (0, 0, 2.8), 10 frames through ``SplatRenderer`` (K1, K2);
@@ -38,7 +46,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         defaults (16-byte rows; K1, K2, K4, K7); the loss must fall;
      c. one 32-byte gradient step (K6), and one under
         SPLATJAX_GRAD_GATHER=f32 (K5);
-     capacity = the measured demand of both scenes + 3%, overflow == 0;
+     e. the stale-order redraw: ``SplatRenderer(feature_bytes=16,
+        resort_interval=8)`` over splatjax bench.py's orbit (eyes
+        (0.02 sin t, 0.02 cos t, 2.8), 8 t over [0, 2 pi)), two laps = 16
+        frames: 16 K3 launches, 2 K1 (one per rebuilt index), no K2;
+     f. the same renderer with 32-byte rows, 8 frames at the unchanged
+        camera: K2 and no K3, within 1e-4 of ``render()``;
+     capacity = the measured demand of both scenes + 3% (paths a-c) and of
+     the base eye and the orbit + 3% (e, f), overflow == 0;
      frame, step, stage and kernel times, device busy time and idle share.
 Then one line with the card's name and power limit, one JSON line with the
 kernel table, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -78,6 +93,18 @@ K2_OPS_PER_FRAGMENT = 12
 # K4 per walked fragment, at the least: K2's 12 plus the 10 adds that fold
 # the fragment's sums into its instance's reduction
 K4_OPS_PER_FRAGMENT = 22
+# K3 per walked instance on top of K2's per-fragment count: splatjax's
+# _project_rows counted op by op (7 matrix rows at 6, the culls 13, the
+# Jacobian rows 29, the two covariance products 30, the 2D covariance 17,
+# the eigen clamps 38, the conic 13, the mean 9, one select; each compare,
+# select, divide and square root counted once)
+K3_OPS_PER_INSTANCE = 192
+K3_TOL = 1e-4          # r, g, b, T, depth: K3 vs plain (f32 order)
+FUSED_TOL = 1e-3       # fused 16-byte redraw vs the 32-byte render
+ORBIT = [(0.02 * math.sin(t), 0.02 * math.cos(t), 2.8)
+         for t in (2.0 * math.pi * i / 8 for i in range(8))]
+REDRAW_LAPS = 2
+RESORT_INTERVAL = 8
 LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
 
 
@@ -217,16 +244,16 @@ def check_k1(scene, cam, capacity):
                 bound_by=b_by)
 
 
-def compare_k2(out_k, out_p, what):
+def compare_k2(out_k, out_p, what, kernel="K2", tol=K2_TOL):
     import torch
 
     rows = [0, 1, 2, 3, 5]
     err = float((out_k[:, rows] - out_p[:, rows]).abs().max())
     if not torch.equal(out_k[:, 4], out_p[:, 4]):
-        raise AssertionError(f"K2 chunks_done differs ({what})")
-    if not err <= K2_TOL:
-        raise AssertionError(f"K2 differs from plain by {err} ({what})")
-    log(f"[k2] {what}: max |err| {err:.3g}, chunks_done equal")
+        raise AssertionError(f"{kernel} chunks_done differs ({what})")
+    if not err <= tol:
+        raise AssertionError(f"{kernel} differs from plain by {err} ({what})")
+    log(f"[{kernel.lower()}] {what}: max |err| {err:.3g}, chunks_done equal")
     return err
 
 
@@ -300,6 +327,114 @@ def check_k2_full(scene, cam, capacity, packed16):
         f"({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def cached_bins(scene, cam, capacity):
+    from splatjax_torch.render import bin_scene
+
+    bins = bin_scene(scene, cam, capacity=capacity, cache_params=True)
+    if int(bins.bins.overflow) != 0:
+        raise AssertionError(f"overflow {int(bins.bins.overflow)} at "
+                             f"{capacity}")
+    return bins
+
+
+def k3_args(bins, cam, clip, es):
+    from splatjax_torch.ops.binning import TileConfig
+    from splatjax_torch.ops.rasterize import cached_camera
+
+    return (bins.prm, cached_camera(cam.modelview, cam.projection, cam.width,
+                                    cam.height),
+            bins.bins.starts, bins.bins.ends, TileConfig(cam.width,
+                                                         cam.height),
+            clip, es)
+
+
+def check_k3_small(gate_scene, gate_cam):
+    """K3 on every tile of the gate scene: bins at the gate camera, drawn
+    there and at a moved eye."""
+    from splatjax_torch import make_camera
+    from splatjax_torch.ops.rasterize import (
+        rasterize_cached_fwd, rasterize_cached_fwd_plain,
+    )
+
+    bins = cached_bins(gate_scene, gate_cam, 1 << 16)
+    moved = make_camera((0.13, -0.18, 2.4), (0, 0, 0), width=gate_cam.width,
+                        height=gate_cam.height)
+    err = 0.0
+    for name, c in (("bin camera", gate_cam), ("moved eye", moved)):
+        for clip in (0.999, None):
+            for es in (1e-4, 0.0):
+                args = k3_args(bins, c, clip, es)
+                err = max(err, compare_k2(
+                    rasterize_cached_fwd(*args),
+                    rasterize_cached_fwd_plain(*args),
+                    f"all {args[4].num_tiles} tiles of {c.width}x"
+                    f"{c.height}, {name}, clip={clip} early_stop={es}",
+                    kernel="K3", tol=K3_TOL))
+    return err
+
+
+def check_k3_full(scene, cam, capacity):
+    """K3 on the full-width frame: bins at ``cam``, drawn at the orbit's
+    second eye; 64 sampled tiles against the plain version, kernel and
+    plain times, bound."""
+    from splatjax_torch import make_camera
+    from splatjax_torch.ops.rasterize import (
+        rasterize_cached_fwd, rasterize_cached_fwd_plain,
+    )
+
+    bins = cached_bins(scene, cam, capacity)
+    eye = make_camera(ORBIT[1], (0, 0, 0), width=WIDTH, height=HEIGHT)
+    args = k3_args(bins, eye, 0.999, 1e-4)
+    out_k = rasterize_cached_fwd(*args)
+    tiles = sample_tiles(bins.bins, args[4], out_k.device)
+    out_p = rasterize_cached_fwd_plain(*args, tiles=tiles)
+    err = compare_k2(out_k[tiles], out_p,
+                     f"{tiles.numel()} sampled tiles of {WIDTH}x{HEIGHT} at "
+                     "an orbit eye", kernel="K3", tol=K3_TOL)
+    ms = kernel_ms(lambda: rasterize_cached_fwd(*args), 10,
+                   "rasterize_cached_kernel")
+    plain_ms = cuda_ms(lambda: rasterize_cached_fwd_plain(*args), 1)
+    walked = walked_instances(bins.bins, out_k)
+    cfg = args[4]
+    p = cfg.pixels_per_tile
+    b_ms, b_by = bound(
+        walked * 64 + cfg.num_tiles * (8 * p * 4 + 8),
+        walked * (p * K2_OPS_PER_FRAGMENT + K3_OPS_PER_INSTANCE),
+    )
+    log(f"[k3] full frame: {int(bins.bins.num_instances)} instances, "
+        f"{walked} walked, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def fused_quality_gate(scene, cam, capacity):
+    """The full-width fused 16-byte redraw at the bins' camera against the
+    32-byte render, and the packed 16-byte cached redraw (K2-16) beside
+    it."""
+    from splatjax_torch.render import render, render_binned
+
+    bins = cached_bins(scene, cam, capacity)
+    kw = dict(alpha_clip=0.999, early_stop=1e-4)
+    exact = render(scene, cam, capacity=capacity, feature_bytes=32, **kw)
+    fused = render_binned(scene, cam, bins, feature_bytes=16, **kw)
+    # asking for depth takes the packed path (splatjax's condition)
+    packed, _ = render_binned(scene, cam, bins, feature_bytes=16,
+                              return_depth=True, **kw)
+    err_fused = float((fused - exact).abs().max())
+    err_packed = float((packed - exact).abs().max())
+    log(f"[fused] {WIDTH}x{HEIGHT} at the bins' camera vs the 32-byte "
+        f"render: fused 16-byte redraw (K3) max |err| {err_fused:.3g}, "
+        f"packed 16-byte cached redraw (K2-16) {err_packed:.3g}")
+    if not err_fused <= FUSED_TOL:
+        raise AssertionError(f"fused redraw {err_fused} from the 32-byte "
+                             "render")
+    if not err_fused <= err_packed:
+        raise AssertionError("fused redraw further from the 32-byte render "
+                             f"than the packed one: {err_fused} > "
+                             f"{err_packed}")
 
 
 def k4_case(scene, cam, capacity, packed16, clip, zbuf, gch, seed=0):
@@ -792,6 +927,95 @@ def gradient_step_path(params, cam, target, capacity, mode):
     return launches
 
 
+def check_frame(img, what):
+    import torch
+
+    if tuple(img.shape) != (HEIGHT, WIDTH, 4) or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{what}: frame is not finite (H, W, 4)")
+    alpha = img[..., 3]
+    if not (float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0
+            and float(alpha.mean()) > 0.05):
+        raise AssertionError(f"{what}: frame alpha out of range or empty")
+    return float(alpha.mean())
+
+
+def redraw_capacity(scene):
+    """Instances the base eye and the orbit need, + 3% (bench.py's
+    capacity probe)."""
+    from splatjax_torch import make_camera
+    from splatjax_torch.render import bin_scene
+
+    need = 0
+    for eye in [EYE] + ORBIT:
+        c = make_camera(eye, (0, 0, 0), width=WIDTH, height=HEIGHT)
+        need = max(need, int(bin_scene(scene, c, capacity=1024
+                                       ).num_instances))
+    return need, -(-int(need * 1.03) // 1024) * 1024
+
+
+def redraw_path(scene, capacity):
+    """Path e: the stale-order redraw over the orbit, 16-byte rows. Returns
+    the launches, the redraw frame times, the rebuild frame times and the
+    renderer."""
+    from splatjax_torch import SplatRenderer, kernels, make_camera
+
+    eyes = [make_camera(e, (0, 0, 0), width=WIDTH, height=HEIGHT)
+            for e in ORBIT * REDRAW_LAPS]
+    renderer = SplatRenderer(scene=scene, capacity=capacity,
+                             feature_bytes=16,
+                             resort_interval=RESORT_INTERVAL,
+                             alpha_clip=0.999, early_stop=1e-4)
+    sync()
+    kernels.reset_launches()
+    redraw_ms, rebuild_ms = [], []
+    for i, c in enumerate(eyes):
+        sync()
+        t0 = time.perf_counter()
+        img = renderer.render(c)
+        sync()
+        (rebuild_ms if i % RESORT_INTERVAL == 0 else redraw_ms).append(
+            (time.perf_counter() - t0) * 1e3)
+        if i % RESORT_INTERVAL == 0 and \
+                int(renderer._bins.bins.overflow) != 0:
+            raise AssertionError(f"redraw overflow at capacity {capacity}")
+    launches = dict(kernels.LAUNCHES)
+    mean_alpha = check_frame(img, "redraw")
+    log(f"[redraw] {len(eyes)} orbit frames, 1M splats {WIDTH}x{HEIGHT}, "
+        f"16-byte rows, resort_interval {RESORT_INTERVAL}: redraw median "
+        f"{statistics.median(redraw_ms):.3f} ms (all: "
+        f"{', '.join(f'{t:.3f}' for t in redraw_ms)}); frames that rebuilt "
+        f"the index {', '.join(f'{t:.3f}' for t in rebuild_ms)} ms; mean "
+        f"alpha {mean_alpha:.4f}")
+    return launches, redraw_ms, rebuild_ms, renderer
+
+
+def redraw32_path(scene, cam, capacity):
+    """Path f: the stale-order redraw with 32-byte rows at the unchanged
+    camera; the frame against render(). Returns the launches."""
+    from splatjax_torch import SplatRenderer, kernels
+    from splatjax_torch.render import render
+
+    kw = dict(alpha_clip=0.999, early_stop=1e-4)
+    renderer = SplatRenderer(scene=scene, capacity=capacity,
+                             feature_bytes="auto",
+                             resort_interval=RESORT_INTERVAL, **kw)
+    sync()
+    kernels.reset_launches()
+    for _ in range(RESORT_INTERVAL):
+        img = renderer.render(cam)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    check_frame(img, "32-byte redraw")
+    err = float((img - render(scene, cam, capacity=capacity, **kw)
+                 ).abs().max())
+    if not err <= K2_TOL:
+        raise AssertionError(f"32-byte redraw differs from render() by {err}")
+    log(f"[redraw32] {RESORT_INTERVAL} frames, 32-byte rows, unchanged "
+        f"camera: max |err| vs render() {err:.3g}; launches {launches}")
+    return launches
+
+
 def require(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
@@ -849,9 +1073,16 @@ def main() -> int:
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_32["max_abs_err"],
                             k4_err)
     seg = check_segreduce(b_full, g32, g16)
-    del g32, g16
+    del g32, g16, b_full
     parity_gate(gate_scene, gate_cam)
     gradient_gate(gate_scene, gate_cam)
+    k3_err = check_k3_small(gate_scene, gate_cam)
+    need_e, capacity_e = redraw_capacity(scene)
+    log(f"[scene] redraw demand {need_e} instances over the base eye and "
+        f"the orbit, capacity {capacity_e}")
+    k3 = check_k3_full(scene, cam, capacity_e)
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
+    fused_quality_gate(scene, cam, capacity_e)
 
     # -- the main paths, counts reset just before each ----------------------
     launches_a, frame_ms, renderer = serving_path(scene, cam, capacity)
@@ -889,6 +1120,33 @@ def main() -> int:
         lambda: step(params, opt, cam.modelview, cam.projection, target), 3),
         statistics.median(step_ms))
 
+    launches_e, redraw_ms, rebuild_ms, redraw_renderer = redraw_path(
+        scene, capacity_e)
+    require(launches_e, ("expand", "rasterize_cached"), "redraw")
+    want = dict(rasterize_cached=len(ORBIT) * REDRAW_LAPS,
+                expand=REDRAW_LAPS, rasterize_fwd16=0, rasterize_fwd=0)
+    if any(launches_e[k] != v for k, v in want.items()):
+        raise AssertionError(f"redraw launches {launches_e}, want {want}")
+    log(f"[launches] redraw: {launches_e} over "
+        f"{len(ORBIT) * REDRAW_LAPS} frames")
+    log(f"[k3] kernel {k3['ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
+        f"({k3['bound_by']}), plain {k3['plain_ms']:.4f} ms; "
+        f"{launches_e['rasterize_cached']} launches in the redraw path")
+    redraw_med = statistics.median(redraw_ms)
+    log(f"[redraw] median redraw frame {redraw_med:.3f} ms vs the exact "
+        f"path's median frame {frame_med:.3f} ms (path a)")
+    from splatjax_torch.render import render_binned
+
+    stale_bins = redraw_renderer._bins
+    log_profile("redraw-profile", *profile_calls(lambda: render_binned(
+        scene, cam, stale_bins, feature_bytes=16, alpha_clip=0.999,
+        early_stop=1e-4)), redraw_med)
+    del redraw_renderer, stale_bins
+    launches_f = redraw32_path(scene, cam, capacity_e)
+    require(launches_f, ("expand", "rasterize_fwd"), "32-byte redraw")
+    if launches_f["rasterize_cached"] != 0:
+        raise AssertionError(f"32-byte redraw launched K3: {launches_f}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -896,8 +1154,9 @@ def main() -> int:
     ).stdout.strip()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    total = {n: launches_a[n] + launches_b[n] + launches_c[n] + launches_d[n]
-             for n in launches_a}
+    total = {n: sum(launches[n] for launches in (
+        launches_a, launches_b, launches_c, launches_d, launches_e,
+        launches_f)) for n in launches_a}
     csrc = "splatjax_torch/csrc/"
     table = [
         dict(name="expand_instances", route="cuda",
@@ -912,6 +1171,10 @@ def main() -> int:
              source=csrc + "rasterize_fwd.cu",
              replaces="splatjax/ops/rasterize.py:678",
              launches=total["rasterize_fwd16"], library_ms=None, **k2_16),
+        dict(name="rasterize_cached_fwd", route="cuda",
+             source=csrc + "rasterize_cached.cu",
+             replaces="splatjax/ops/rasterize.py:1123",
+             launches=total["rasterize_cached"], library_ms=None, **k3),
         dict(name="rasterize_bwd", route="cuda",
              source=csrc + "rasterize_bwd.cu",
              replaces="splatjax/ops/rasterize_vjp.py:97",

@@ -1,0 +1,207 @@
+// Fused cached-viewer forward (K3): projection of cached per-instance
+// parameters under the current camera, then K2's fragment loop, in one
+// kernel.
+//
+// Replaces splatjax/ops/rasterize.py::_cached_fwd_kernel (the Pallas kernel
+// called by rasterize_cached_fwd). The TPU kernel streams group-major
+// blocks of 8 chunks through a 6-slot DMA ring, projects a whole group at
+// once so the math fills (8, 128) vregs, carries the projected group from
+// one sequential grid step to the next in SMEM, and runs the power and the
+// color sum as bf16 MXU matmuls. None of that carries over: blocks run in
+// no order here, and the rows stay instance-major (64 B per instance, four
+// 16-byte loads).
+//
+// What bounds it on the H100: as for K2, the per-fragment arithmetic; the
+// projection adds about 190 f32 operations per walked instance, 1/256 of
+// a tile's fragments each, and the rows are 64 B instead of 32 B.
+//
+// Design: the shared fragment loop of composite.cuh (one block per 16x16
+// tile, globally aligned 128-instance chunks, __syncthreads_or early stop),
+// fed by a row source that loads one cached row and projects it:
+// * the row is [mean xyz, cov6 (xx xy xz yy yz zz), rgb, opacity,
+//   max_scale, 0, 0] (splatjax's pack_cached_rows);
+// * the camera (row-major modelview and projection, width, height) is a
+//   by-value kernel argument, so a frame copies nothing to the device;
+// * the projection is splatjax's _project_rows op for op: frustum guard,
+//   cz < 0 and size culls, the +0.3 dilation, the eigen clamps, every cull
+//   folded into opacity = 0. It is written with round-to-nearest
+//   intrinsics, so nvcc contracts none of it into FMAs and the result is
+//   bit-equal to the plain version's separately rounded f32 ops: an ulp on
+//   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
+//   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
+//   it), so a degenerate instance decodes to the same values in both;
+// * only the 128 threads of a chunk's instances project; the other 128
+//   wait at the barrier.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "composite.cuh"
+#include "rows.cuh"
+
+namespace {
+
+constexpr float FRUSTUM_GUARD = 1.2f;
+constexpr float SIZE_CULL_THRESHOLD = 1e-4f;
+
+struct CachedCamera {
+  float mv[16];  // world -> camera, row-major
+  float pr[16];  // camera -> clip, row-major
+  int width;
+  int height;
+};
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+// max / min against a constant that keep a NaN, as torch and jnp do
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return a != a ? a : fminf(a, b);
+}
+// row i of a row-major 4x4 matrix applied to (x, y, z, 1), left to right
+__device__ __forceinline__ float xform(const float* m, int i, float x,
+                                       float y, float z) {
+  return add_rn(add_rn(add_rn(mul_rn(m[4 * i], x), mul_rn(m[4 * i + 1], y)),
+                 mul_rn(m[4 * i + 2], z)),
+             m[4 * i + 3]);
+}
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
+                                      float b1, float b2) {
+  return add_rn(add_rn(mul_rn(a0, b0), mul_rn(a1, b1)), mul_rn(a2, b2));
+}
+
+struct CachedRows {
+  const float4* prm;  // (K, 4) float4 = (K, 16) f32 cached rows
+  CachedCamera cam;
+
+  __device__ __forceinline__ Decoded operator()(long long k) const {
+    const float4 q0 = __ldg(prm + 4 * k);
+    const float4 q1 = __ldg(prm + 4 * k + 1);
+    const float4 q2 = __ldg(prm + 4 * k + 2);
+    const float4 q3 = __ldg(prm + 4 * k + 3);
+    const float mex = q0.x, mey = q0.y, mez = q0.z;
+    const float sxx = q0.w, sxy = q1.x, sxz = q1.y;
+    const float syy = q1.z, syz = q1.w, szz = q2.x;
+    const float opa = q3.x, max_scale = q3.y;
+    const float* mv = cam.mv;
+    const float* pr = cam.pr;
+
+    const float cx = xform(mv, 0, mex, mey, mez);
+    const float cy = xform(mv, 1, mex, mey, mez);
+    const float cz = xform(mv, 2, mex, mey, mez);
+    const float px_c = xform(pr, 0, cx, cy, cz);
+    const float py_c = xform(pr, 1, cx, cy, cz);
+    const float pz_c = xform(pr, 2, cx, cy, cz);
+    const float w_clip = xform(pr, 3, cx, cy, cz);
+
+    const float bounds = mul_rn(FRUSTUM_GUARD, w_clip);
+    const bool in_frustum = (pz_c >= -w_clip) && (px_c >= -bounds) &&
+                            (px_c <= bounds) && (py_c >= -bounds) &&
+                            (py_c <= bounds);
+    const bool keep = in_frustum && (cz < 0.0f) &&
+                      (mul_rn(max_scale, opa) > mul_rn(SIZE_CULL_THRESHOLD, -cz));
+
+    const float focal = mul_rn((float)cam.height * 0.5f, fabsf(pr[5]));
+    const float safe_z = fabsf(cz) < 1e-8f ? 1e-8f : cz;
+    const float fz = div_rn(focal, safe_z);
+    const float fz2 = div_rn(focal, mul_rn(safe_z, safe_z));
+    // T = W J collapsed to two row vectors
+    const float cxf = mul_rn(cx, fz2), cyf = mul_rn(cy, fz2);
+    const float t00 = sub_rn(mul_rn(fz, mv[0]), mul_rn(cxf, mv[8]));
+    const float t01 = sub_rn(mul_rn(fz, mv[1]), mul_rn(cxf, mv[9]));
+    const float t02 = sub_rn(mul_rn(fz, mv[2]), mul_rn(cxf, mv[10]));
+    const float t10 = add_rn(mul_rn(-fz, mv[4]), mul_rn(cyf, mv[8]));
+    const float t11 = add_rn(mul_rn(-fz, mv[5]), mul_rn(cyf, mv[9]));
+    const float t12 = add_rn(mul_rn(-fz, mv[6]), mul_rn(cyf, mv[10]));
+    const float u00 = dot3(sxx, sxy, sxz, t00, t01, t02);
+    const float u01 = dot3(sxy, syy, syz, t00, t01, t02);
+    const float u02 = dot3(sxz, syz, szz, t00, t01, t02);
+    const float u10 = dot3(sxx, sxy, sxz, t10, t11, t12);
+    const float u11 = dot3(sxy, syy, syz, t10, t11, t12);
+    const float u12 = dot3(sxz, syz, szz, t10, t11, t12);
+    const float a = add_rn(dot3(t00, t01, t02, u00, u01, u02), 0.3f);
+    const float b = dot3(t10, t11, t12, u00, u01, u02);
+    const float c = add_rn(dot3(t10, t11, t12, u10, u11, u12), 0.3f);
+
+    const float mid = mul_rn(0.5f, add_rn(a, c));
+    const float h = mul_rn(0.5f, sub_rn(a, c));
+    const float r2 = add_rn(mul_rn(h, h), mul_rn(b, b));
+    const float radius = sqrt_rn(max_nan(r2, 0.0f));
+    const float lam1 = add_rn(mid, radius);
+    const float lam2 = max_nan(sub_rn(mid, radius), 0.1f);
+    const float vx = b, vy = sub_rn(lam1, a);
+    const float v2 = add_rn(mul_rn(vx, vx), mul_rn(vy, vy));
+    const bool ok = v2 > 1e-24f;
+    const float vnorm = sqrt_rn(ok ? v2 : 1.0f);
+    const float dvx = ok ? div_rn(vx, vnorm) : 1.0f;
+    const float dvy = ok ? div_rn(vy, vnorm) : 0.0f;
+    const float len1 = min_nan(sqrt_rn(mul_rn(2.0f, lam1)), 1024.0f);
+    const float len2 =
+        min_nan(sqrt_rn(mul_rn(2.0f, max_nan(lam2, 0.0f))), 1024.0f);
+    const float lam1_eff = max_nan(mul_rn(mul_rn(0.5f, len1), len1), 1e-8f);
+    const float lam2_eff = max_nan(mul_rn(mul_rn(0.5f, len2), len2), 1e-8f);
+    const float inv1 = div_rn(1.0f, lam1_eff);
+    const float inv2 = div_rn(1.0f, lam2_eff);
+
+    const float safe_w = fabsf(w_clip) < 1e-8f ? 1e-8f : w_clip;
+    Decoded d;
+    d.mx = mul_rn(add_rn(div_rn(px_c, safe_w), 1.0f), (float)cam.width * 0.5f);
+    d.my = mul_rn(add_rn(div_rn(py_c, safe_w), 1.0f), (float)cam.height * 0.5f);
+    d.ca = add_rn(mul_rn(mul_rn(inv1, dvx), dvx), mul_rn(mul_rn(inv2, dvy), dvy));
+    d.cb = mul_rn(mul_rn(sub_rn(inv1, inv2), dvx), dvy);
+    d.cc = add_rn(mul_rn(mul_rn(inv1, dvy), dvy), mul_rn(mul_rn(inv2, dvx), dvx));
+    d.r = q2.y;
+    d.g = q2.z;
+    d.b = q2.w;
+    d.opa = keep ? opa : 0.0f;
+    d.depth = cz;
+    return d;
+  }
+};
+
+__global__ void __launch_bounds__(P)
+rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
+  composite_tile(src, args);
+}
+
+}  // namespace
+
+// prm: (K, 16) f32 cached parameter rows in tile order, 16-byte aligned;
+// mv, pr: host pointers to the row-major 4x4 modelview and projection (read
+// here, passed to the kernel by value); starts/ends: (num_tiles,) int32;
+// out: (num_tiles, 8, 256) f32.
+extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
+                                          const float* pr, int width,
+                                          int height, const int* starts,
+                                          const int* ends, float* out,
+                                          int num_tiles, int tiles_x,
+                                          int has_clip, float log_clip,
+                                          int clamp_log_om, float log_eps,
+                                          cudaStream_t stream) {
+  if (num_tiles == 0) return 0;
+  CachedRows src;
+  src.prm = reinterpret_cast<const float4*>(prm);
+  for (int i = 0; i < 16; ++i) {
+    src.cam.mv[i] = mv[i];
+    src.cam.pr[i] = pr[i];
+  }
+  src.cam.width = width;
+  src.cam.height = height;
+  const CompositeArgs args{starts,   ends,     nullptr,      out,    tiles_x,
+                           has_clip, log_clip, clamp_log_om, log_eps};
+  rasterize_cached_kernel<<<num_tiles, P, 0, stream>>>(src, args);
+  return (int)cudaGetLastError();
+}

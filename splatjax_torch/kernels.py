@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "splatjax_torch"
 SOURCES = {
     "expand": "expand.cu",
     "rasterize_fwd": "rasterize_fwd.cu",
+    "rasterize_cached": "rasterize_cached.cu",
     "rasterize_bwd": "rasterize_bwd.cu",
     "segreduce": "segreduce.cu",
 }
@@ -36,11 +37,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# counter -> launches: K1, K2 (32-byte rows), K2 (16-byte rows), K4, K5,
-# K6, K7
+# counter -> launches: K1, K2 (32-byte rows), K2 (16-byte rows), K3, K4,
+# K5, K6, K7
 LAUNCHES = {name: 0 for name in (
-    "expand", "rasterize_fwd", "rasterize_fwd16", "rasterize_bwd",
-    "segreduce_rows", "segreduce_u16", "segreduce_bf16",
+    "expand", "rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
+    "rasterize_bwd", "segreduce_rows", "segreduce_u16", "segreduce_bf16",
 )}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
-"""Forward tile rasterizer (K2), row packing and image assembly (PyTorch
-port of the forward half of ``splatjax/ops/rasterize.py``).
+"""Forward tile rasterizers (K2 on packed rows, K3 on cached parameter rows
+projected in the kernel), row packing and image assembly (PyTorch port of
+the forward half of ``splatjax/ops/rasterize.py``).
 
 Instances move as packed int32 rows, 8 lanes wide, in one of splatjax's two
 layouts, so both packages quantize identically. The 32-byte viewer rows:
@@ -25,13 +26,17 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from splatjax_torch import kernels
 from splatjax_torch.ops.binning import TileConfig
+from splatjax_torch.ops.projection import (
+    FRUSTUM_GUARD,
+    SIZE_CULL_THRESHOLD,
+)
 
 CHUNK = 128          # instances per early-stop chunk (globally aligned)
 PACKED_ROWS = 8
@@ -47,6 +52,12 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_int, ctypes.c_void_p]
+)
+_CACHED_ARGTYPES = (
+    [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_float)] * 2
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_void_p]
 )
 
 
@@ -180,18 +191,26 @@ def _log_eps(early_stop: float) -> float:
     return float(math.log(early_stop)) if early_stop > 0.0 else -math.inf
 
 
-def _check_raster_inputs(rows, starts, ends, zbuf, cfg: TileConfig):
-    dev = rows.device
-    num_tiles, p = cfg.num_tiles, cfg.pixels_per_tile
-    if rows.dim() != 2 or rows.shape[1] != PACKED_ROWS:
-        raise ValueError(f"rows must be (K, {PACKED_ROWS}), got "
+def _check_rows(rows, name: str, width: int, dtype) -> torch.device:
+    if rows.dim() != 2 or rows.shape[1] != width:
+        raise ValueError(f"{name} must be (K, {width}), got "
                          f"{tuple(rows.shape)}")
-    kernels.check_tensor(rows, "rows", torch.int32, dev)
+    kernels.check_tensor(rows, name, dtype, rows.device)
+    return rows.device
+
+
+def _check_bounds(starts, ends, cfg: TileConfig, dev) -> None:
     for name, t in (("starts", starts), ("ends", ends)):
-        if tuple(t.shape) != (num_tiles,):
-            raise ValueError(f"{name} must be ({num_tiles},), got "
+        if tuple(t.shape) != (cfg.num_tiles,):
+            raise ValueError(f"{name} must be ({cfg.num_tiles},), got "
                              f"{tuple(t.shape)}")
         kernels.check_tensor(t, name, torch.int32, dev)
+
+
+def _check_raster_inputs(rows, starts, ends, zbuf, cfg: TileConfig):
+    dev = _check_rows(rows, "rows", PACKED_ROWS, torch.int32)
+    num_tiles, p = cfg.num_tiles, cfg.pixels_per_tile
+    _check_bounds(starts, ends, cfg, dev)
     if zbuf is not None:
         if tuple(zbuf.shape) != (num_tiles, p, 1):
             raise ValueError(f"zbuf must be ({num_tiles}, {p}, 1), got "
@@ -247,7 +266,23 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
     """Plain PyTorch version of :func:`rasterize_fwd`, vectorised over
     tiles, pixels and the instances of one chunk. ``tiles`` (1-D indices)
     renders only those tiles, returning (len(tiles), 8, P)."""
-    dev = rows.device
+    return _composite_plain(lambda k: decode_rows(rows[k], packed16),
+                           rows.shape[0], starts, ends, cfg, alpha_clip,
+                           early_stop, zbuf, tiles)
+
+
+def _composite_plain(decode, k_rows: int, starts: torch.Tensor,
+                    ends: torch.Tensor, cfg: TileConfig,
+                    alpha_clip: Optional[float] = None,
+                    early_stop: float = 1e-4,
+                    zbuf: Optional[torch.Tensor] = None,
+                    tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward composite shared by the plain versions of K2 and K3:
+    ``decode(k)`` maps a (B, C) tensor of instance indices (clamped to
+    [0, k_rows)) to the f32 features (mx, my, ca, cb, cc, r, g, b, opa,
+    depth), each (B, C); K2 decodes packed rows, K3 projects cached
+    parameter rows. Returns planar (len(tiles), 8, P)."""
+    dev = starts.device
     f32 = torch.float32
     if tiles is None:
         tiles = torch.arange(cfg.num_tiles, device=dev)
@@ -259,7 +294,6 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
     clamp = not clip_bounds_alpha(alpha_clip)
     log_eps = _log_eps(early_stop)
     lane = torch.arange(CHUNK, device=dev)
-    k_rows = rows.shape[0]
     outs = []
     for b0 in range(0, tiles.shape[0], _PLAIN_TILE_BATCH):
         tb = tiles[b0:b0 + _PLAIN_TILE_BATCH]
@@ -280,8 +314,7 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
                 break
             k = astart[:, None] + c * CHUNK + lane[None, :]      # (B, C)
             in_range = (k >= st[:, None]) & (k < en[:, None])
-            kc = k.clamp(0, max(k_rows - 1, 0))
-            f = decode_rows(rows[kc], packed16)                  # (B, C)
+            f = decode(k.clamp(0, max(k_rows - 1, 0)))          # (B, C)
             mxl = f[0] - ox[:, None]
             myl = f[1] - oy[:, None]
             col = torch.stack([f[5], f[6], f[7], f[9]], dim=-1)  # (B, C, 4)
@@ -317,6 +350,194 @@ def rasterize_fwd_plain(rows: torch.Tensor, starts: torch.Tensor,
     if not outs:
         return torch.zeros((0, 8, p_n), dtype=f32, device=dev)
     return torch.cat(outs, dim=0)
+
+
+# -- K3: the fused cached-viewer forward ------------------------------------
+# A redraw against stale bins (render.render_binned with CachedBins)
+# projects the camera-independent per-instance parameters, gathered once
+# per resort, inside the rasterizer: one kernel per frame, no per-frame
+# gather or pack. The rows stay instance-major, 64 B per instance.
+
+CACHED_ROWS = 16   # mean xyz, cov6 (xx xy xz yy yz zz), rgb, opa, max_scale
+
+
+class CachedCamera(NamedTuple):
+    """What K3 takes of the camera, on the host: the row-major 4x4
+    modelview and projection as 16 floats each, and the viewport (the
+    kernel gets them as a by-value argument)."""
+
+    modelview: tuple
+    projection: tuple
+    width: int
+    height: int
+
+
+def cached_camera(modelview, projection, width: int, height: int
+                  ) -> CachedCamera:
+    """Host copy of a camera for K3 (a camera on the card costs one 128-byte
+    read, which waits for its stream)."""
+    def host(m):
+        return tuple(torch.as_tensor(m).detach().to("cpu", torch.float32)
+                     .reshape(16).tolist())
+
+    return CachedCamera(host(modelview), host(projection), int(width),
+                        int(height))
+
+
+def pack_cached_rows(means, cov6, colors, opacities, max_scales
+                     ) -> torch.Tensor:
+    """Per-instance camera-independent parameters -> (K, 16) f32 rows
+    [mean xyz, cov6, rgb, opacity, max_scale, 0, 0] (bit-equal to
+    splatjax's ``pack_cached_rows``)."""
+    f32 = torch.float32
+    k = means.shape[0]
+    return torch.cat(
+        [means.to(f32), cov6.to(f32), colors.to(f32),
+         opacities.to(f32)[:, None], max_scales.to(f32)[:, None],
+         torch.zeros((k, CACHED_ROWS - 14), dtype=f32, device=means.device)],
+        dim=1,
+    ).contiguous()
+
+
+def project_cached_rows(prm: torch.Tensor, modelview: torch.Tensor,
+                        projection: torch.Tensor, width: int, height: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """Plain version of K3's in-kernel projection: (..., 16) cached rows ->
+    the f32 features (mx, my, ca, cb, cc, r, g, b, opa, depth), each shaped
+    like ``prm[..., 0]``.
+
+    splatjax's ``_project_rows`` op for op, each op rounded on its own (the
+    kernel matches this order without FMA contraction): frustum guard,
+    cz < 0 and size culls, the +0.3 dilation, the eigen clamps, and every
+    cull folded into opacity = 0."""
+    f32 = torch.float32
+    mv = modelview.to(prm.device, f32)
+    pr = projection.to(prm.device, f32)
+    mex, mey, mez = prm[..., 0], prm[..., 1], prm[..., 2]
+    sxx, sxy, sxz, syy, syz, szz = (prm[..., i] for i in range(3, 9))
+    opa, max_scale = prm[..., 12], prm[..., 13]
+
+    def xform(m, i, vx, vy, vz):
+        return m[i, 0] * vx + m[i, 1] * vy + m[i, 2] * vz + m[i, 3]
+
+    def dot3(u, v):
+        return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+    cx, cy, cz = (xform(mv, i, mex, mey, mez) for i in range(3))
+    px_c, py_c, pz_c, w_clip = (xform(pr, i, cx, cy, cz) for i in range(4))
+    bounds = FRUSTUM_GUARD * w_clip
+    in_frustum = (
+        (pz_c >= -w_clip)
+        & (px_c >= -bounds) & (px_c <= bounds)
+        & (py_c >= -bounds) & (py_c <= bounds)
+    )
+    keep = in_frustum & (cz < 0.0) & (
+        max_scale * opa > SIZE_CULL_THRESHOLD * (-cz))
+
+    focal = (height / 2.0) * pr[1, 1].abs()
+    safe_z = torch.where(cz.abs() < 1e-8, torch.full_like(cz, 1e-8), cz)
+    fz = focal / safe_z
+    fz2 = focal / (safe_z * safe_z)
+    cxf, cyf = cx * fz2, cy * fz2
+    t0 = [fz * mv[0, j] - cxf * mv[2, j] for j in range(3)]
+    t1 = [-fz * mv[1, j] + cyf * mv[2, j] for j in range(3)]
+    rows = ((sxx, sxy, sxz), (sxy, syy, syz), (sxz, syz, szz))
+    u0 = [dot3(r, t0) for r in rows]
+    u1 = [dot3(r, t1) for r in rows]
+    a = dot3(t0, u0) + 0.3
+    b = dot3(t1, u0)
+    c = dot3(t1, u1) + 0.3
+
+    mid = 0.5 * (a + c)
+    h = 0.5 * (a - c)
+    radius = (h * h + b * b).clamp_min(0.0).sqrt()
+    lam1 = mid + radius
+    lam2 = (mid - radius).clamp_min(0.1)
+    vx, vy = b, lam1 - a
+    v2 = vx * vx + vy * vy
+    ok = v2 > 1e-24
+    vnorm = torch.where(ok, v2, torch.ones_like(v2)).sqrt()
+    dvx = torch.where(ok, vx / vnorm, torch.ones_like(vx))
+    dvy = torch.where(ok, vy / vnorm, torch.zeros_like(vy))
+    len1 = (2.0 * lam1).sqrt().clamp_max(1024.0)
+    len2 = (2.0 * lam2.clamp_min(0.0)).sqrt().clamp_max(1024.0)
+    inv1 = 1.0 / (0.5 * len1 * len1).clamp_min(1e-8)
+    inv2 = 1.0 / (0.5 * len2 * len2).clamp_min(1e-8)
+
+    safe_w = torch.where(w_clip.abs() < 1e-8, torch.full_like(w_clip, 1e-8),
+                         w_clip)
+    return (
+        (px_c / safe_w + 1.0) * (width / 2.0),
+        (py_c / safe_w + 1.0) * (height / 2.0),
+        inv1 * dvx * dvx + inv2 * dvy * dvy,
+        (inv1 - inv2) * dvx * dvy,
+        inv1 * dvy * dvy + inv2 * dvx * dvx,
+        prm[..., 9], prm[..., 10], prm[..., 11],
+        torch.where(keep, opa, torch.zeros_like(opa)),
+        cz,
+    )
+
+
+def rasterize_cached_fwd(prm: torch.Tensor, camera: CachedCamera,
+                         starts: torch.Tensor, ends: torch.Tensor,
+                         cfg: TileConfig,
+                         alpha_clip: Optional[float] = None,
+                         early_stop: float = 1e-4) -> torch.Tensor:
+    """Fused cached-viewer forward (K3): project every instance of
+    ``prm[starts[t]:ends[t]]`` under ``camera`` and composite the tile;
+    returns planar (T, 8, P) f32 with :func:`rasterize_fwd`'s rows.
+
+    prm: (K, 16) f32 cached rows in tile order (:func:`pack_cached_rows`);
+    camera: :func:`cached_camera` of the frame. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    dev = _check_rows(prm, "prm", CACHED_ROWS, torch.float32)
+    _check_bounds(starts, ends, cfg, dev)
+    if (camera.width, camera.height) != (cfg.width, cfg.height):
+        raise ValueError(f"camera is {camera.width}x{camera.height}, tiles "
+                         f"are for {cfg.width}x{cfg.height}")
+    if dev.type == "cpu":
+        return rasterize_cached_fwd_plain(prm, camera, starts, ends, cfg,
+                                          alpha_clip, early_stop)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if prm.data_ptr() % 16 != 0:
+        raise ValueError("prm must be 16-byte aligned")
+    out = torch.empty((cfg.num_tiles, 8, cfg.pixels_per_tile),
+                      dtype=torch.float32, device=dev)
+    lc = log_clip(alpha_clip)
+    mat = ctypes.c_float * 16
+    fn = kernels.function("rasterize_cached", "splat_rasterize_cached_fwd",
+                          _CACHED_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(
+            prm.data_ptr(), mat(*camera.modelview), mat(*camera.projection),
+            camera.width, camera.height, starts.data_ptr(), ends.data_ptr(),
+            out.data_ptr(), cfg.num_tiles, cfg.tiles_x, int(lc is not None),
+            0.0 if lc is None else lc,
+            int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
+            kernels.stream_of(dev),
+        )
+    kernels.check_launch("rasterize_cached", err)
+    return out
+
+
+def rasterize_cached_fwd_plain(prm: torch.Tensor, camera: CachedCamera,
+                               starts: torch.Tensor, ends: torch.Tensor,
+                               cfg: TileConfig,
+                               alpha_clip: Optional[float] = None,
+                               early_stop: float = 1e-4,
+                               tiles: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rasterize_cached_fwd`:
+    :func:`project_cached_rows` as the decode of K2's plain chunk loop.
+    ``tiles`` (1-D indices) renders only those tiles."""
+    mv, pr = (torch.tensor(m, dtype=torch.float32, device=prm.device
+                           ).reshape(4, 4)
+              for m in (camera.modelview, camera.projection))
+    return _composite_plain(
+        lambda k: project_cached_rows(prm[k], mv, pr, camera.width,
+                                      camera.height),
+        prm.shape[0], starts, ends, cfg, alpha_clip, early_stop, None, tiles)
 
 
 def pixel_coords(cfg: TileConfig, dev) -> tuple[torch.Tensor, torch.Tensor]:

@@ -189,3 +189,26 @@ def cov6_to_mat(cov6: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([s12, s22, s23], dim=-1)
     row2 = torch.stack([s13, s23, s33], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def importance(scene: GaussianScene) -> torch.Tensor:
+    """Per-gaussian importance = volume x opacity (scales.prod() times
+    opacity), the metric the reference viewer sorts by before truncating
+    an asset at its texture capacity."""
+    s = scene.scales.to(torch.float32)
+    return s[:, 0] * s[:, 1] * s[:, 2] * scene.opacities.to(torch.float32)
+
+
+def select_important(scene: GaussianScene, fraction: float
+                     ) -> GaussianScene:
+    """Level-of-detail subset: the top ``fraction`` of gaussians by
+    :func:`importance`, importance-descending (a stable sort, so ties keep
+    their order, as splatjax's ``argsort``)."""
+    if not (0.0 < fraction <= 1.0):
+        raise ValueError(f"fraction must be in (0, 1], got {fraction}")
+    k = max(int(round(scene.num_gaussians * fraction)), 1)
+    order = torch.argsort(-importance(scene), stable=True)[:k]
+    return GaussianScene(**{
+        f: None if getattr(scene, f) is None else getattr(scene, f)[order]
+        for f in _FIELDS
+    })

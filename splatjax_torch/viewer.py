@@ -7,11 +7,14 @@ over the tiled pipeline.
                                       width=1920, height=1080))
 
 :meth:`SplatRenderer.feed` ingests .splat bytes progressively, as the
-viewer's streaming loader does.
+viewer's streaming loader does. ``resort_interval > 1`` redraws against a
+tile index rebuilt every that many frames (the reference viewer drawing
+with the worker's previous sort order).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -19,7 +22,12 @@ import torch
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
 from splatjax_torch.io.splat_format import ROW_LENGTH, parse_splat_bytes
-from splatjax_torch.render import render
+from splatjax_torch.render import (
+    _scale_camera,
+    bin_scene,
+    render,
+    render_binned,
+)
 from splatjax_torch.scene import GaussianScene
 
 # The viewer caps its texture at MAX_TEXTURE_SIZE^2 splats; excess rows are
@@ -61,8 +69,11 @@ class SplatRenderer:
       max_splats: truncation like the viewer's texture capacity.
       capacity / alpha_clip / early_stop / viewer_exact / feature_bytes /
         background: see :func:`splatjax_torch.render.render`.
-      resort_interval: 1 (exact per-frame sort); the cached stale-order
-        path is not ported yet and larger values raise.
+      resort_interval: 1 renders the exact per-frame sort; N > 1 rebuilds
+        a cached tile index (``bin_scene(cache_params=True)``) every N
+        frames and whenever the scene object or the viewport changes, and
+        redraws the frames between with ``render_binned`` (16-byte rows:
+        one K3 launch per frame).
       device: where a ``src`` or ``feed()`` scene is loaded.
     """
 
@@ -82,15 +93,13 @@ class SplatRenderer:
     device: object = "cuda"
 
     def __post_init__(self):
-        if self.resort_interval > 1:
-            raise NotImplementedError(
-                "resort_interval > 1 (cached stale-order redraw, kernel K3) "
-                "is not ported yet; see ROADMAP.md"
-            )
         self.device = resolve_device(self.device)
         self._pending = b""
         self._parts: list[GaussianScene] = []
         self._fed = 0
+        self._bins = None             # cached tile index (resort_interval>1)
+        self._bins_key = None         # (scene object, width, height)
+        self._frames_since_sort = 0
         if self.src is not None:
             if str(self.src).endswith(".ply"):
                 raise NotImplementedError(
@@ -131,19 +140,24 @@ class SplatRenderer:
 
     # -- rendering -----------------------------------------------------------
     def render(self, camera: Camera, xr: bool = False, **overrides):
-        """Render the exact per-frame path; ``xr=True`` applies
-        ``xr_pixel_ratio`` instead of ``pixel_ratio``. ``overrides`` are
-        passed on to :func:`splatjax_torch.render.render`."""
+        """Render; ``xr=True`` applies ``xr_pixel_ratio`` instead of
+        ``pixel_ratio``. ``overrides`` are passed on to
+        :func:`splatjax_torch.render.render` and force the exact per-frame
+        path (with a warning when ``resort_interval > 1``)."""
         self._materialize()
         if self.scene is None or self.scene.num_gaussians == 0:
             raise ValueError("no scene loaded (src/scene/feed)")
-        ratio = self.xr_pixel_ratio if xr else self.pixel_ratio
-        if ratio != 1.0:
-            camera = Camera(
-                modelview=camera.modelview,
-                projection=camera.projection,
-                width=max(int(camera.width * ratio), 1),
-                height=max(int(camera.height * ratio), 1),
+        camera = _scale_camera(
+            camera, self.xr_pixel_ratio if xr else self.pixel_ratio)
+        if self.resort_interval > 1:
+            if not overrides:
+                return self._render_stale_order(camera)
+            # the cached tile index cannot honour arbitrary render() kwargs
+            warnings.warn(
+                "SplatRenderer.render(**overrides) bypasses the cached "
+                "stale-order tile index (resort_interval ignored): "
+                f"exact per-frame sort used for {sorted(overrides)}",
+                stacklevel=2,
             )
         kw = dict(
             capacity=self.capacity,
@@ -156,3 +170,32 @@ class SplatRenderer:
         )
         kw.update(overrides)
         return render(self.scene, camera, **kw)
+
+    def _render_stale_order(self, camera: Camera):
+        """A frame against a possibly stale tile index, rebuilt every
+        ``resort_interval`` frames and whenever the scene or the viewport
+        changes; projection and shading are always the frame's own."""
+        # the key holds the scene object itself (compared with `is`), not
+        # its id(), which can be reused once the object is freed; feed()
+        # always builds a new scene object
+        key = (self.scene, camera.width, camera.height)
+        if (
+            self._bins is None
+            or self._bins_key[0] is not key[0]
+            or self._bins_key[1:] != key[1:]
+            or self._frames_since_sort >= self.resort_interval
+        ):
+            self._bins = bin_scene(
+                self.scene, camera, capacity=self.capacity,
+                viewer_exact=self.viewer_exact, cutout=self.cutout,
+                early_stop=self.early_stop, cache_params=True,
+            )
+            self._bins_key = key
+            self._frames_since_sort = 0
+        self._frames_since_sort += 1
+        return render_binned(
+            self.scene, camera, self._bins, alpha_clip=self.alpha_clip,
+            early_stop=self.early_stop, viewer_exact=self.viewer_exact,
+            feature_bytes=self.feature_bytes, cutout=self.cutout,
+            background=self.background,
+        )
