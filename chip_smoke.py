@@ -19,10 +19,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      gradient channel's largest |value| on the gate scene and 1e-3 on the
      full-width frame, whose deepest tiles carry log T through thousands of
      instances, summed in another order (16-byte rows: plus one bf16 ulp,
-     2^-7 of the value, where the two round f32 sums to bf16 apart);
+     2^-7 of the value, where the two round f32 sums to bf16 apart); two
+     runs on the full-width frame give bit-identical rows;
   5. K5, K6, K7 (segment sums) against their plain versions on the
      full-width backward's rows (2.8M instances onto 1M gaussians): K6
      bit-equal, K5/K7 within (run length) x 2^-23 x (sum of |rows|) per run;
+     then the tail diagnostics (``[tail]``): walked instances per tile
+     (mean, p99, max); K2, K3 and K4 on the deepest tile alone beside the
+     whole frame; K4 with its tiles ordered by walked instances against
+     the bins' order by list length (the rows must be bit-identical);
   6. parity gate: the tiled renderer against the O(N x P) reference, 2000
      splats at 192x128, early_stop=0, alpha_clip=None, < 1e-3;
   7. gradient gate: the same scene with 32-byte rows, early_stop=0 and
@@ -58,6 +63,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 Then one line with the card's name and power limit, one JSON line with the
 kernel table, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints no result and exits with 1.
+
+Kernel times come from CUDA events around each launch, queued behind a
+device wait (``kernel_ms``); each ``[k*]`` line says how many launches
+were timed. Device busy time and idle share come from torch.profiler.
 """
 from __future__ import annotations
 
@@ -104,6 +113,7 @@ FUSED_TOL = 1e-3       # fused 16-byte redraw vs the 32-byte render
 ORBIT = [(0.02 * math.sin(t), 0.02 * math.cos(t), 2.8)
          for t in (2.0 * math.pi * i / 8 for i in range(8))]
 REDRAW_LAPS = 2
+QUEUE_CYCLES = 20_000_000  # device wait (~10 ms) that kernel_ms queues behind
 RESORT_INTERVAL = 8
 LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
 
@@ -136,26 +146,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> float:
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler: the
-    kernel's own execution only, so the wrapper's host time between
-    launches (tens of microseconds, more than K1 itself) does not count."""
+def kernel_ms(fn, reps: int, entry: tuple[str, str], tries: int = 3
+              ) -> tuple[float, str]:
+    """Device time of one launch of the kernel behind C entry ``entry``
+    (library, name), over ``reps`` calls of ``fn``: CUDA events around each
+    launch (``kernels.timed_launches``), so the wrapper's host time and
+    other device work (tens of microseconds, more than K1 itself) do not
+    count. The launches queue behind a device wait of QUEUE_CYCLES, so no
+    event waits on the host; if the wait ended before the host had queued
+    every launch, the measurement is taken again with twice the wait, at
+    most ``tries`` times. Returns the mean and "n/reps launches timed" for
+    the caller's line."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from splatjax_torch import kernels
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    hits = [e for e in prof.key_averages() if kernel in e.key
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    if sum(e.count for e in hits) != reps:
-        raise AssertionError(f"profiler saw {[e.key for e in hits]} for "
-                             f"{reps} launches of {kernel}")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+    cycles = QUEUE_CYCLES
+    for attempt in range(1, tries + 1):
+        with kernels.timed_launches(*entry) as pairs:
+            torch.cuda._sleep(cycles)
+            waited = torch.cuda.Event()
+            waited.record()
+            for _ in range(reps):
+                fn()
+            drained = waited.query()
+            sync()
+        if len(pairs) != reps:
+            raise AssertionError(f"{len(pairs)} launches of {entry[1]} timed "
+                                 f"for {reps} calls")
+        if not drained:
+            ms = sum(a.elapsed_time(b) for a, b in pairs) / reps
+            return ms, f"{len(pairs)}/{reps} launches timed" + (
+                f", wait {cycles} cycles" if attempt > 1 else "")
+        log(f"[timing] {entry[1]}: the device wait of {cycles} cycles ended "
+            f"before {reps} launches were queued; again with twice the wait")
+        cycles *= 2
+    raise AssertionError(f"{tries} timings of {entry[1]} outran their wait")
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -231,15 +258,16 @@ def check_k1(scene, cam, capacity):
         raise AssertionError(f"K1 differs from its plain version at {bad} "
                              "slots")
     n = d.cum_d.shape[0]
-    ms = kernel_ms(lambda: expand_instances(*args), 20, "expand_kernel")
+    ms, timed = kernel_ms(lambda: expand_instances(*args), 20,
+                           ("expand", "splat_expand_instances"))
     plain_ms = cuda_ms(lambda: expand_instances_plain(*args), 3)
     slots = capacity
     b_ms, b_by = bound(
         5 * 4 * n + 2 * 4 * slots,
         slots * (math.ceil(math.log2(max(n, 2))) + 8),
     )
-    log(f"[k1] N={n} capacity={capacity} integer-equal; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[k1] N={n} capacity={capacity} integer-equal; kernel {ms:.4f} ms "
+        f"({timed}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -257,15 +285,20 @@ def compare_k2(out_k, out_p, what, kernel="K2", tol=K2_TOL):
     return err
 
 
-def walked_instances(b, out) -> int:
-    """Instances K2 walked: [start, min(end, astart + 128 chunks_done))."""
+def walked_per_tile(b, out):
+    """Instances K2 walked in each tile, (T,) int64: [start, min(end,
+    astart + 128 chunks_done)), with ``out`` its output on ``b``'s bounds."""
     from splatjax_torch.ops.rasterize import CHUNK
 
     start = b.starts.long()
     astart = start // CHUNK * CHUNK
     done = out[:, 4, 0].long()
     stop = b.ends.long().minimum(astart + CHUNK * done)
-    return int((stop - start).clamp_min(0).sum())
+    return (stop - start).clamp_min(0)
+
+
+def walked_instances(b, out) -> int:
+    return int(walked_per_tile(b, out).sum())
 
 
 def gate_zbuf(cfg, device):
@@ -311,8 +344,8 @@ def check_k2_full(scene, cam, capacity, packed16):
     err = compare_k2(out_k[tiles], out_p,
                      f"{16 if packed16 else 32}-byte rows, {tiles.numel()} "
                      f"sampled tiles of {cfg.width}x{cfg.height}")
-    ms = kernel_ms(lambda: rasterize_fwd(*args, packed16), 10,
-                   "rasterize_fwd_kernel")
+    ms, timed = kernel_ms(lambda: rasterize_fwd(*args, packed16), 10,
+                           ("rasterize_fwd", "splat_rasterize_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_fwd_plain(*args,
                                                    packed16=packed16), 1)
     walked = walked_instances(b, out_k)
@@ -323,8 +356,8 @@ def check_k2_full(scene, cam, capacity, packed16):
     )
     log(f"[k2] full frame, {16 if packed16 else 32}-byte rows: "
         f"{int(b.num_instances)} instances, {walked} walked, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"{ms:.4f} ms ({timed}), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -393,8 +426,8 @@ def check_k3_full(scene, cam, capacity):
     err = compare_k2(out_k[tiles], out_p,
                      f"{tiles.numel()} sampled tiles of {WIDTH}x{HEIGHT} at "
                      "an orbit eye", kernel="K3", tol=K3_TOL)
-    ms = kernel_ms(lambda: rasterize_cached_fwd(*args), 10,
-                   "rasterize_cached_kernel")
+    ms, timed = kernel_ms(lambda: rasterize_cached_fwd(*args), 10,
+                           ("rasterize_cached", "splat_rasterize_cached_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_cached_fwd_plain(*args), 1)
     walked = walked_instances(bins.bins, out_k)
     cfg = args[4]
@@ -404,8 +437,8 @@ def check_k3_full(scene, cam, capacity):
         walked * (p * K2_OPS_PER_FRAGMENT + K3_OPS_PER_INSTANCE),
     )
     log(f"[k3] full frame: {int(bins.bins.num_instances)} instances, "
-        f"{walked} walked, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"{walked} walked, kernel {ms:.4f} ms ({timed}), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -518,6 +551,11 @@ def check_k4_full(scene, cam, capacity, packed16):
 
     cfg, b, args = k4_case(scene, cam, capacity, packed16, 0.999, False, 4)
     g_k = rasterize_bwd(*args, packed16=packed16)
+    if not torch.equal(g_k, rasterize_bwd(*args, packed16=packed16)):
+        raise AssertionError(f"K4 rows differ between two runs "
+                             f"({16 if packed16 else 32}-byte rows)")
+    log(f"[k4] full frame, {16 if packed16 else 32}-byte rows: two runs "
+        "bit-identical")
     tiles = sample_tiles(b, cfg, g_k.device)
     g_p = rasterize_bwd_plain(*args, tiles=tiles, packed16=packed16)
     idx = torch.cat([torch.arange(int(b.starts[t]), int(b.ends[t]),
@@ -529,8 +567,8 @@ def check_k4_full(scene, cam, capacity, packed16):
                      f"{tiles.numel()} sampled tiles of {cfg.width}x"
                      f"{cfg.height} (deepest walks {deepest} instances)",
                      tol=K4_TOL_FULL)
-    ms = kernel_ms(lambda: rasterize_bwd(*args, packed16=packed16), 10,
-                   "rasterize_bwd_kernel")
+    ms, timed = kernel_ms(lambda: rasterize_bwd(*args, packed16=packed16),
+                           10, ("rasterize_bwd", "splat_rasterize_bwd"))
     plain_ms = cuda_ms(lambda: rasterize_bwd_plain(*args,
                                                    packed16=packed16), 1)
     out = args[3]
@@ -543,10 +581,90 @@ def check_k4_full(scene, cam, capacity, packed16):
         walked * p * K4_OPS_PER_FRAGMENT,
     )
     log(f"[k4] full frame, {width}-byte rows: {walked} walked instances, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"kernel {ms:.4f} ms ({timed}), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by), b, g_k
+
+
+def tail_diagnostics(scene, cam, capacity):
+    """How the full-width frame's work spreads over its tiles, and whether
+    the rasterizers are tail-bound: the walked-instance distribution per
+    tile; K2 (32-byte rows), K3 (at the bins' camera) and K4 (16-byte rows,
+    as in training) on the deepest tile alone (every other tile given
+    ends = starts; K4 takes the forward's output on those bounds) beside
+    the whole frame; and K4 with its tiles ordered by walked instances (each
+    tile's end cut to its walked end, past which K4 never reads, so the
+    wrapper's order by list length becomes the order by walked instances)
+    against the bins' order."""
+    import torch
+    from splatjax_torch.ops.binning import features_from_projection
+    from splatjax_torch.ops.rasterize import (
+        gather_rows, pack_table, rasterize_cached_fwd, rasterize_fwd,
+    )
+    from splatjax_torch.ops.rasterize_vjp import rasterize_bwd
+
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4)
+    with torch.no_grad():
+        rows16 = gather_rows(pack_table(features_from_projection(
+            projected(scene, cam, 1e-4)), True), b.gauss_id)
+    fwd = dict(alpha_clip=0.999, early_stop=1e-4)
+    walked = walked_per_tile(b, rasterize_fwd(rows, b.starts, b.ends, cfg,
+                                              **fwd)).double()
+    deep = int(walked.argmax())
+    log(f"[tail] walked instances per tile over {cfg.num_tiles} tiles: mean "
+        f"{float(walked.mean()):.1f}, p99 "
+        f"{float(torch.quantile(walked, 0.99)):.1f}, max {int(walked[deep])} "
+        f"(tile {deep}, {deep / cfg.num_tiles:.2f} of the way through the "
+        "tile index)")
+    alone = b.starts.clone()
+    alone[deep] = b.ends[deep]
+    g = torch.Generator(device=rows.device).manual_seed(0)
+    g_out = torch.randn((cfg.num_tiles, 4, cfg.pixels_per_tile),
+                        generator=g, device=rows.device)
+    cb = cached_bins(scene, cam, capacity)
+    prm, camera, starts3 = k3_args(cb, cam, None, None)[:3]
+    alone3 = starts3.clone()
+    alone3[deep] = cb.bins.ends[deep]
+    out = {}
+    for name, ends, ends3 in (("alone", alone, alone3),
+                              ("frame", b.ends, cb.bins.ends)):
+        out["k2", name] = kernel_ms(
+            lambda: rasterize_fwd(rows, b.starts, ends, cfg, **fwd), 10,
+            ("rasterize_fwd", "splat_rasterize_fwd"))
+        out["k3", name] = kernel_ms(
+            lambda: rasterize_cached_fwd(prm, camera, starts3, ends3, cfg,
+                                         **fwd), 10,
+            ("rasterize_cached", "splat_rasterize_cached_fwd"))
+        saved = rasterize_fwd(rows16, b.starts, ends, cfg, packed16=True,
+                              **fwd)
+        out["k4", name] = kernel_ms(
+            lambda: rasterize_bwd(rows16, b.starts, ends, saved, g_out, cfg,
+                                  0.999, packed16=True), 10,
+            ("rasterize_bwd", "splat_rasterize_bwd"))
+    for k, what in (("k2", "K2 32-byte"), ("k3", "K3 at the bins' camera"),
+                    ("k4", "K4 16-byte")):
+        (a_ms, a_tr), (f_ms, f_tr) = out[k, "alone"], out[k, "frame"]
+        log(f"[tail] {what}: deepest tile alone {a_ms:.4f} ms ({a_tr}), "
+            f"whole frame {f_ms:.4f} ms ({f_tr}; {a_ms / f_ms:.3f} of it)")
+
+    walked16 = walked_per_tile(b, saved)
+    walked_ends = (b.starts.long() + walked16).to(torch.int32)
+    args = (saved, g_out, cfg, 0.999)
+    by_len = rasterize_bwd(rows16, b.starts, b.ends, *args, packed16=True)
+    by_walked = rasterize_bwd(rows16, b.starts, walked_ends, *args,
+                              packed16=True)
+    if not torch.equal(by_len, by_walked):
+        raise AssertionError("K4 rows depend on the tile order")
+    len_ms, len_tr = kernel_ms(
+        lambda: rasterize_bwd(rows16, b.starts, b.ends, *args,
+                              packed16=True), 10, ("rasterize_bwd", "splat_rasterize_bwd"))
+    walk_ms, walk_tr = kernel_ms(
+        lambda: rasterize_bwd(rows16, b.starts, walked_ends, *args,
+                              packed16=True), 10, ("rasterize_bwd", "splat_rasterize_bwd"))
+    log(f"[tail] K4 16-byte, tiles by list length (the bins' order) "
+        f"{len_ms:.4f} ms ({len_tr}), by walked instances {walk_ms:.4f} ms "
+        f"({walk_tr}); rows bit-identical")
 
 
 def _check_runs(k, p, abs_sum, run_len, name):
@@ -581,14 +699,14 @@ def check_segreduce(b, g32, g16):
     cases = (
         ("segreduce_rows", sr.segment_reduce_rows,
          sr.segment_reduce_rows_plain, rows32, rows32, 64,
-         "segreduce_f32_kernel"),
+         ("segreduce", "splat_segreduce_f32")),
         ("segreduce_u16", sr.segment_reduce_packed_u16,
          sr.segment_reduce_packed_u16_plain, packed_u16,
          sr.unpack_u16_pairs(packed_u16).float(), 32,
-         "segreduce_packed_kernel"),
+         ("segreduce", "splat_segreduce_packed")),
         ("segreduce_bf16", sr.segment_reduce_packed_bf16,
          sr.segment_reduce_packed_bf16_plain, rows16,
-         sr.unpack_bf16_pairs(rows16), 32, "segreduce_packed_kernel"),
+         sr.unpack_bf16_pairs(rows16), 32, ("segreduce", "splat_segreduce_packed")),
     )
     out = {}
     for name, fn, plain, rows, decoded, row_bytes, kname in cases:
@@ -602,7 +720,7 @@ def check_segreduce(b, g32, g16):
         else:
             abs_sum = sr.segment_reduce_rows_plain(decoded.abs(), eff)
             err = _check_runs(got, want, abs_sum, run_len, name)
-        ms = kernel_ms(lambda: fn(rows, eff), 10, kname)
+        ms, timed = kernel_ms(lambda: fn(rows, eff), 10, kname)
         plain_ms = cuda_ms(lambda: plain(rows, eff), 3)
         data = decoded[:total].contiguous()
         seg_ms = cuda_ms(lambda: torch.segment_reduce(
@@ -611,7 +729,8 @@ def check_segreduce(b, g32, g16):
             (n, 16), device=data.device).index_add_(0, gid_sorted, data), 10)
         b_ms, b_by = bound(total * row_bytes + n * 4 + n * 64, total * 16)
         log(f"[seg] {name}: {total} rows onto {n} gaussians, max |err| "
-            f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{err:.3g}; kernel {ms:.4f} ms ({timed}), plain "
+            f"{plain_ms:.4f} ms, "
             f"torch.segment_reduce {seg_ms:.4f} ms, index_add_ "
             f"{add_ms:.4f} ms (on the decoded f32 rows), bound {b_ms:.4f} "
             f"ms ({b_by})")
@@ -684,7 +803,7 @@ def stage_times(scene, cam, capacity):
         TileConfig, bin_gaussians, features_from_projection,
     )
     from splatjax_torch.ops.rasterize import (
-        gather_rows, pack_feature_table, rasterize_fwd, tiles_to_image,
+        _rasterize_fwd, gather_rows, pack_feature_table, tiles_to_image,
     )
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -697,7 +816,8 @@ def stage_times(scene, cam, capacity):
     rows = gather_rows(pack_feature_table(features_from_projection(proj)),
                        b.gauss_id)
     ev[3].record()
-    out = rasterize_fwd(rows, b.starts, b.ends, cfg, 0.999, 1e-4)
+    out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg, 0.999, 1e-4,
+                         None, False)
     ev[4].record()
     tiles_to_image(out, cfg)
     ev[5].record()
@@ -715,10 +835,10 @@ def train_stage_times(params, cam, target, capacity, cfg):
         segment_sum_by_gid_packed_bf16,
     )
     from splatjax_torch.ops.rasterize import (
-        gather_rows, pack_feature_table16, rasterize_fwd, tiles_to_image,
+        _rasterize_fwd, gather_rows, pack_feature_table16, tiles_to_image,
     )
     from splatjax_torch.ops.rasterize_vjp import (
-        image_cotangent_to_tiles, rasterize_bwd,
+        _rasterize_bwd, image_cotangent_to_tiles,
     )
     from splatjax_torch.train.fit import _optimizer
     from splatjax_torch.train.loss import combined_loss
@@ -736,15 +856,15 @@ def train_stage_times(params, cam, target, capacity, cfg):
     feat_n = features_from_projection(proj)
     rows = gather_rows(pack_feature_table16(feat_n.detach()), b.gauss_id)
     ev[3].record()
-    out = rasterize_fwd(rows, b.starts, b.ends, tc, cfg.alpha_clip,
-                        cfg.early_stop, None, True)
+    out = _rasterize_fwd(rows, b.starts, b.ends, b.order, tc, cfg.alpha_clip,
+                         cfg.early_stop, None, True)
     ev[4].record()
     img = tiles_to_image(out, tc).requires_grad_()
     combined_loss(img, target, ssim_weight=cfg.ssim_weight).backward()
     ev[5].record()
-    g_rows = rasterize_bwd(rows, b.starts, b.ends, out,
-                           image_cotangent_to_tiles(img.grad, tc), tc,
-                           cfg.alpha_clip, None, True)
+    g_rows = _rasterize_bwd(rows, b.starts, b.ends, b.order, out,
+                            image_cotangent_to_tiles(img.grad, tc), tc,
+                            cfg.alpha_clip, None, True)
     ev[6].record()
     seg = segment_sum_by_gid_packed_bf16(g_rows, b.gauss_id, b.cum, b.count,
                                          b.perm, b.cum_d, b.count_d,
@@ -1074,6 +1194,7 @@ def main() -> int:
                             k4_err)
     seg = check_segreduce(b_full, g32, g16)
     del g32, g16, b_full
+    tail_diagnostics(scene, cam, capacity)
     parity_gate(gate_scene, gate_cam)
     gradient_gate(gate_scene, gate_cam)
     k3_err = check_k3_small(gate_scene, gate_cam)

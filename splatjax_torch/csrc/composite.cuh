@@ -9,27 +9,49 @@
 // Everything after it (power coefficients, cutoff, clip, transmittance,
 // early stop, output rows) is the one fragment loop below.
 //
+// What bounds it on the H100: issue slots per walked fragment (the power
+// polynomial, and exp + log1p + exp inside the support), and the latency
+// of the deepest tiles, whose blocks walk up to 20x the mean tile's
+// instances one after another. A first design (one thread per pixel,
+// scalar shared arrays, tiles in index order) spent 8 broadcast shared
+// loads per walked fragment before the cutoff test and started its
+// deepest tiles mid-grid, so they finished last. PERF.md has the measured
+// times of both designs.
+//
 // Design (splatjax's chunking, the standard CUDA 3DGS tile loop):
-// * one 256-thread block per 16x16 tile, one thread per pixel;
+// * one 256-thread block per 16x16 tile, taken heaviest first: block b
+//   composites tile order[b], a permutation of all tiles by descending
+//   instance count, so the deepest tiles start first and the short ones
+//   fill in behind them;
+// * each thread owns PIX = 2 vertically adjacent pixels, so every shared
+//   load of an instance's features serves both; 128 threads cover the tile
+//   (a warp covers a 16x4 patch), and the block's two such groups split
+//   each chunk's instances between them, the front 64 and the back 64, so
+//   a deep tile's walk runs on 8 warps;
 // * the tile's instances [start, end) are walked in 128-instance chunks
 //   aligned to GLOBAL multiples of 128 from astart = start / 128 * 128, the
 //   chunking splatjax uses, so `chunks_done` (output row 4) is the same
 //   contract the backward re-walks;
-// * per chunk, threads lo..hi-1 each produce one instance's features from
-//   the row source and store its power coefficients, threshold, color and
-//   depth in shared memory; each pixel then composites the chunk
-//   sequentially in f32;
+// * per chunk, the first group's threads each produce one instance's
+//   features from the row source and store them as three float4 records,
+//   (c0, c1, c2, c3), (c4, c5, threshold, depth) and (r, g, b, -): a walked
+//   fragment costs two 16-byte broadcast loads for both pixels, a third
+//   only when one of them is inside the support;
 // * before each chunk the whole tile stops if no pixel still has
-//   log T > log(early_stop) (__syncthreads_or, also the barrier that
+//   log T > log(early_stop) (__syncthreads_or over both pixels of every
+//   thread of the first group, which carries T; also the barrier that
 //   protects the shared chunk buffer);
 // * transmittance is carried in log space (log1p(-alpha), clamped at -60
 //   when the clip does not bound alpha below 1), the within-chunk weight is
-//   exp(s_excl + log alpha) and the chunk's sum is scaled by exp(log T) at
-//   the chunk end, as splatjax computes it;
+//   exp(s_excl + log alpha), as splatjax computes it; each group sums its
+//   half from its own start, the back half's sums are scaled by exp(the
+//   front half's log-transmittance sum) when the halves are joined, and the
+//   chunk's sum by exp(log T) at the chunk end;
 // * the power is evaluated as c0 + c1 x + c2 y + c3 x^2 + c4 xy + c5 y^2 in
-//   tile-centered coordinates (half-integers, exact in f32), matching
-//   splatjax's coefficient formulation so fragments on the exp(-4) cutoff
-//   fall the same way;
+//   tile-centered coordinates (half-integers, exact in f32), term for term
+//   in this order (another association or FMA contraction flips fragments
+//   on the exp(-4) cutoff), matching splatjax's coefficient formulation so
+//   those fragments fall the same way as in the plain version;
 // * fragments outside the support have alpha == 0 exactly and are skipped,
 //   which leaves every sum unchanged (a NaN power fails the compare too).
 #pragma once
@@ -44,13 +66,19 @@ namespace {
 constexpr int TILE = 16;
 constexpr int P = TILE * TILE;
 constexpr int CHUNK = 128;
+constexpr int PIX = 2;               // pixels per thread, one above another
+constexpr int GROUP = P / PIX;       // 128 threads cover a tile's pixels
+constexpr int HALF = CHUNK / 2;      // instances of a chunk per group
+constexpr int THREADS = 2 * GROUP;   // 256 threads per tile
 constexpr int OUT_ROWS = 8;
 constexpr float LOG_OM_MIN = -60.0f;
+static_assert(GROUP == CHUNK, "the first group produces a chunk's rows");
 
 // Per-launch arguments of the composite, passed by value.
 struct CompositeArgs {
   const int* starts;  // (num_tiles,) int32
   const int* ends;    // (num_tiles,) int32
+  const int* order;   // (num_tiles,) int32 tile of each block, heaviest first
   const float* zbuf;  // (num_tiles, 256) camera z, or null
   float* out;         // (num_tiles, 8, 256)
   int tiles_x;
@@ -63,91 +91,139 @@ struct CompositeArgs {
 template <class Source>
 __device__ __forceinline__ void composite_tile(const Source& src,
                                                const CompositeArgs& a) {
-  __shared__ float s_coef[6][CHUNK];
-  __shared__ float s_thr[CHUNK];
-  __shared__ float s_col[4][CHUNK];
+  __shared__ float4 s_pow[CHUNK];  // c0, c1, c2, c3
+  __shared__ float4 s_cut[CHUNK];  // c4, c5, log-alpha threshold, depth
+  __shared__ float4 s_col[CHUNK];  // r, g, b, unused
+  __shared__ float4 s_back[P];     // the back half's r, g, b, depth sums
+  __shared__ float s_back_lt[P];   // and its log-transmittance sum
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int t = a.order[blockIdx.x];
+  const int tid = threadIdx.x;
+  const int half = tid / GROUP;    // 0: front half of each chunk, 1: back
+  const int q = tid % GROUP;
   const int start = a.starts[t];
   const int end = a.ends[t];
   const int astart = (start / CHUNK) * CHUNK;
   const int n_chunks = (end - astart + CHUNK - 1) / CHUNK;
 
-  // tile-centered pixel coordinates: half-integers in [-7.5, 7.5]
-  const float x = (float)(p % TILE) + 0.5f - 0.5f * TILE;
-  const float y = (float)(p / TILE) + 0.5f - 0.5f * TILE;
-  const float xx = x * x, xy = x * y, yy = y * y;
+  // tile-centered pixel coordinates: half-integers in [-7.5, 7.5]; pixel
+  // j of this thread is (px, py0 + j), index pix[j]
+  const int px = q % TILE;
+  const int py0 = (q / TILE) * PIX;
+  const float x = (float)px + 0.5f - 0.5f * TILE;
+  const float xx = x * x;
+  int pix[PIX];
+  float y[PIX], xy[PIX], yy[PIX], zb[PIX];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    pix[j] = (py0 + j) * TILE + px;
+    y[j] = (float)(py0 + j) + 0.5f - 0.5f * TILE;
+    xy[j] = x * y[j];
+    yy[j] = y[j] * y[j];
+    zb[j] = a.zbuf != nullptr ? a.zbuf[(long long)t * P + pix[j]]
+                              : -CUDART_INF_F;
+  }
   const float ox = (float)((t % a.tiles_x) * TILE) + 0.5f * TILE;
   const float oy = (float)((t / a.tiles_x) * TILE) + 0.5f * TILE;
-  const float zb =
-      a.zbuf != nullptr ? a.zbuf[(long long)t * P + p] : -CUDART_INF_F;
 
-  float lt = 0.0f;  // log transmittance
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
+  float lt[PIX];  // log transmittance (the front group's)
+  float acc_r[PIX], acc_g[PIX], acc_b[PIX], acc_d[PIX];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    lt[j] = 0.0f;
+    acc_r[j] = acc_g[j] = acc_b[j] = acc_d[j] = 0.0f;
+  }
   int c = 0;
   for (; c < n_chunks; ++c) {
-    if (!__syncthreads_or(lt > a.log_eps)) break;
+    bool alive = false;
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) alive |= half == 0 && lt[j] > a.log_eps;
+    if (!__syncthreads_or(alive)) break;
     const int base = astart + c * CHUNK;
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
-    if (p >= lo && p < hi) {
-      const Decoded d = src((long long)base + p);
-      const float ca = d.ca, cb = d.cb, cc = d.cc;
-      const float lnopa = logf(fmaxf(d.opa, 1e-30f));
-      const float mxl = d.mx - ox, myl = d.my - oy;
-      s_coef[0][p] =
-          -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa;
-      s_coef[1][p] = ca * mxl + cb * myl;
-      s_coef[2][p] = cc * myl + cb * mxl;
-      s_coef[3][p] = -0.5f * ca;
-      s_coef[4][p] = -cb;
-      s_coef[5][p] = -0.5f * cc;
-      s_thr[p] = lnopa - 4.0f;
-      s_col[0][p] = d.r;
-      s_col[1][p] = d.g;
-      s_col[2][p] = d.b;
-      s_col[3][p] = d.depth;
+    if (tid < CHUNK && tid >= lo && tid < hi) {
+      const Decoded d = src((long long)base + tid);
+      power_records(d, d.mx - ox, d.my - oy, s_pow[tid], s_cut[tid]);
+      s_col[tid] = make_float4(d.r, d.g, d.b, 0.0f);
     }
     __syncthreads();
 
-    float s_ex = 0.0f;  // exclusive log-transmittance sum within the chunk
-    float cr = 0.0f, cg = 0.0f, cbl = 0.0f, cd = 0.0f;
-    for (int i = lo; i < hi; ++i) {
-      const float power = s_coef[0][i] + s_coef[1][i] * x + s_coef[2][i] * y +
-                          s_coef[3][i] * xx + s_coef[4][i] * xy +
-                          s_coef[5][i] * yy;
-      const float depth = s_col[3][i];
-      if (power >= s_thr[i] && depth > zb) {
-        const float pe = a.has_clip ? fminf(power, a.log_clip) : power;
+    float s_ex[PIX];  // exclusive log-transmittance sum within the half
+    float cr[PIX], cg[PIX], cbl[PIX], cd[PIX];
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      s_ex[j] = 0.0f;
+      cr[j] = cg[j] = cbl[j] = cd[j] = 0.0f;
+    }
+    const int h_lo = max(lo, half * HALF);
+    const int h_hi = min(hi, half * HALF + HALF);
+    for (int i = h_lo; i < h_hi; ++i) {
+      const float4 ct = s_cut[i];
+      float power[PIX];
+      bool hit[PIX];
+      if (!eval_power(s_pow[i], ct, x, xx, y, xy, yy, zb, power, hit)) {
+        continue;
+      }
+      const float4 col = s_col[i];
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+        if (!hit[j]) continue;
+        const float pe = a.has_clip ? fminf(power[j], a.log_clip) : power[j];
         const float alpha = expf(pe);
         float s = log1pf(-alpha);
         if (a.clamp_log_om) s = fmaxf(s, LOG_OM_MIN);
-        const float w = expf(s_ex + pe);
-        cr += w * s_col[0][i];
-        cg += w * s_col[1][i];
-        cbl += w * s_col[2][i];
-        cd += w * depth;
-        s_ex += s;
+        const float w = expf(s_ex[j] + pe);
+        cr[j] += w * col.x;
+        cg[j] += w * col.y;
+        cbl[j] += w * col.z;
+        cd[j] += w * ct.w;
+        s_ex[j] += s;
       }
     }
-    const float tr = expf(lt);
-    acc_r += tr * cr;
-    acc_g += tr * cg;
-    acc_b += tr * cbl;
-    acc_d += tr * cd;
-    lt += s_ex;
+    if (half == 1) {
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+        s_back[pix[j]] = make_float4(cr[j], cg[j], cbl[j], cd[j]);
+        s_back_lt[pix[j]] = s_ex[j];
+      }
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+        // join the halves: the back half's weights start behind the front
+        const float4 bk = s_back[pix[j]];
+        const float tf = expf(s_ex[j]);
+        cr[j] += tf * bk.x;
+        cg[j] += tf * bk.y;
+        cbl[j] += tf * bk.z;
+        cd[j] += tf * bk.w;
+        s_ex[j] += s_back_lt[pix[j]];
+        const float tr = expf(lt[j]);
+        acc_r[j] += tr * cr[j];
+        acc_g[j] += tr * cg[j];
+        acc_b[j] += tr * cbl[j];
+        acc_d[j] += tr * cd[j];
+        lt[j] += s_ex[j];
+      }
+    }
   }
 
-  float* o = a.out + (long long)t * OUT_ROWS * P + p;
-  o[0 * P] = acc_r;
-  o[1 * P] = acc_g;
-  o[2 * P] = acc_b;
-  o[3 * P] = expf(lt);
-  o[4 * P] = (float)c;
-  o[5 * P] = acc_d;
-  o[6 * P] = lt;
-  o[7 * P] = 0.0f;
+  if (half == 0) {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      float* o = a.out + (long long)t * OUT_ROWS * P + pix[j];
+      o[0 * P] = acc_r[j];
+      o[1 * P] = acc_g[j];
+      o[2 * P] = acc_b[j];
+      o[3 * P] = expf(lt[j]);
+      o[4 * P] = (float)c;
+      o[5 * P] = acc_d[j];
+      o[6 * P] = lt[j];
+      o[7 * P] = 0.0f;
+    }
+  }
 }
 
 }  // namespace

@@ -9,19 +9,31 @@
 // from one grid step to the next (a DMA-ownership artefact of its
 // feature-major output). None of that carries over.
 //
-// What bounds it on the H100: per-fragment arithmetic and the per-instance
-// reduction over the tile's pixels. Each walked fragment recomputes the
-// power polynomial and, inside the support, exp + log1p + exp and about 30
-// FLOPs of chain rule; each (instance, warp) with a live fragment then
-// reduces 10 sums over 32 lanes with shuffles. Bytes are small: one packed
-// row per walked instance in, one 64-byte (32-byte when packed) gradient
-// row out.
+// What bounds it on the H100: issue slots, in two places, and the deepest
+// tiles' latency. Each walked fragment recomputes the power polynomial
+// and, inside the support, exp + log1p + exp and about 30 FLOPs of chain
+// rule; each (instance, warp) with a live fragment then reduces 10 sums
+// over its pixels. A first design (a 5-level shuffle tree for each of the
+// 10 sums: 50 shuffles per warp and instance, tiles in index order) ran at
+// 4.4% of its operation bound, and its deepest tile, 14x the mean tile's
+// walked instances and alone half of the kernel's time, started mid-grid.
+// Bytes are small: one packed row per walked instance in, one 64-byte
+// (32-byte when packed) gradient row out. PERF.md has the measured times.
 //
 // Design:
-// * one 256-thread block per 16x16 tile, one thread per pixel;
+// * one 256-thread block per 16x16 tile, taken heaviest first: block b
+//   re-walks tile order[b], the binning's permutation of all tiles by
+//   descending list length, the forward's order too;
+// * one pixel per thread (PIX): on the 1M-splat 1920x1080 frame, measured
+//   on an H100 SXM at 700 W, two pixels a thread on 128 threads took 1.3x
+//   the time and four on 64 threads 2x, because a deep tile's latency-bound
+//   walk then runs on 4 or 2 warps instead of 8;
 // * it walks exactly the chunks the forward walked: chunks_done (row 4 of
-//   the saved output) from astart = start / 128 * 128, last chunk first,
-//   each chunk's rows decoded into shared memory, instances back to front;
+//   the saved output) from astart = start / 128 * 128, last chunk first;
+//   the first 128 threads decode one of the chunk's rows each into shared
+//   memory as four records, (c0, c1, c2, c3), (c4, c5, threshold, depth),
+//   (r, g, b, mxl) and (myl, opacity), so a walked fragment costs two
+//   16-byte broadcast loads, and two more only when it is live;
 // * transmittance comes from the saved LOG T_final (row 6), never from T:
 //   log T_k = log T_after - log1p(-alpha_k), so stacks whose T drops below
 //   the f32 range keep their front gradients;
@@ -31,9 +43,13 @@
 //   when the clip does not bound alpha, g_alpha zeroed where the clip
 //   binds, centred moments of g_power for the conic and mean gradients,
 //   S1 / opacity for the opacity gradient, alpha T g for color and depth;
-// * the 10 sums of each instance are reduced over the tile in a fixed
-//   order, warp shuffles and then the 8 warp partials in shared memory, so
-//   the result is the same on every run (no atomics);
+// * the 10 sums of an instance are folded over the thread's pixels in
+//   registers, then over the warp by a reduce-scatter butterfly (5 + 3 +
+//   2 + 1 + 1 = 12 shuffles, after which one even lane holds each sum),
+//   skipped when no lane of the warp is live; those 10 lanes store the
+//   warp's partials, and after the chunk each instance's thread adds the 8
+//   warps' partials in warp order. Every sum has a fixed order, so two
+//   runs give bit-identical rows (no atomics);
 // * each instance belongs to one tile, so a block writes only its walked
 //   rows [start, min(end, astart + 128 chunks_done)) of a zero-filled
 //   output;
@@ -53,10 +69,13 @@ constexpr int TILE = 16;
 constexpr int P = TILE * TILE;
 constexpr int CHUNK = 128;
 constexpr int OUT_ROWS = 8;
-constexpr int NWARPS = P / 32;
+constexpr int PIX = 1;                // pixels per thread, one above another
+constexpr int THREADS = P / PIX;      // 256 threads per tile
+constexpr int NWARPS = THREADS / 32;
 constexpr int NSUM = 10;
 constexpr float LOG_OM_MIN = -60.0f;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+static_assert(THREADS % CHUNK == 0, "one row per thread of the first 128");
 
 __device__ __forceinline__ uint32_t bf16_round_bits(float x) {
   const uint32_t u = __float_as_uint(x);
@@ -69,144 +88,191 @@ __device__ __forceinline__ int pack_pair(float lo, float hi) {
                (bf16_round_bits(lo) >> 16));
 }
 
+// Which of the 10 sums warp_reduce_scatter leaves on `lane`, or -1: the
+// even lanes whose bits 1-3 name a position that every level kept hold
+// sum 5 b4 + 3 b3 + 2 b2 + b1 (b the lane's bits). Nibble (lane / 2) % 8
+// of SLOTS is that sum for b4 = 0, 15 where none. Written as bit tests,
+// the slot and its shared address were recomputed inside the instance
+// loop of the 16-byte instantiation (15 integer instructions an instance
+// in its SASS), which made it 14% slower than the 32-byte one; with the
+// table and a pointer taken once, both loops hold them in registers.
+constexpr unsigned SLOTS = 0xFF43F210u;
+__device__ __forceinline__ int scatter_slot(int lane) {
+  const int v = (int)((SLOTS >> (4 * ((lane >> 1) & 7))) & 15u);
+  return (lane & 1) || v == 15 ? -1 : v + 5 * ((lane >> 4) & 1);
+}
+
+// Sums v[0..9] over the 32 lanes of a warp. Each level exchanges half of
+// the values still held with the partner lane and adds the other half:
+// 10 -> 5 (xor 16), 5 -> 3 (xor 8, one padded), 3 -> 2 (xor 4, one
+// padded), 2 -> 1 (xor 2), then the pair sum (xor 1). Returns the warp sum
+// of v[scatter_slot(lane)] on the lanes where that is >= 0.
+__device__ __forceinline__ float warp_reduce_scatter(const float (&v)[NSUM],
+                                                     int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float w[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    const float keep = b4 ? v[m + 5] : v[m];
+    const float send = b4 ? v[m] : v[m + 5];
+    w[m] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+  float u[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const float upper = m + 3 < 5 ? w[m + 3] : 0.0f;
+    const float keep = b3 ? upper : w[m];
+    const float send = b3 ? w[m] : upper;
+    u[m] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  float z[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float upper = m + 2 < 3 ? u[m + 2] : 0.0f;
+    const float keep = b2 ? upper : u[m];
+    const float send = b2 ? u[m] : upper;
+    z[m] = keep + __shfl_xor_sync(FULL, send, 4);
+  }
+  const float q = (b1 ? z[1] : z[0]) + __shfl_xor_sync(FULL, b1 ? z[0] : z[1], 2);
+  return q + __shfl_xor_sync(FULL, q, 1);
+}
+
 template <bool PACKED16>
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(THREADS)
 rasterize_bwd_kernel(const int4* __restrict__ rows,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends,
+                     const int* __restrict__ order,
                      const float* __restrict__ out_saved,
                      const float* __restrict__ g_out, int gch,
                      const float* __restrict__ zbuf, void* __restrict__ grad,
                      int tiles_x, int has_clip, float log_clip,
                      int clamp_log_om, int om_floor) {
-  __shared__ float s_coef[6][CHUNK];
-  __shared__ float s_thr[CHUNK];
-  __shared__ float s_col[4][CHUNK];
-  __shared__ float s_mxl[CHUNK];
-  __shared__ float s_myl[CHUNK];
-  __shared__ float s_opa[CHUNK];
-  __shared__ float s_part[NWARPS][NSUM][CHUNK];
+  __shared__ float4 s_pow[CHUNK];  // c0, c1, c2, c3
+  __shared__ float4 s_cut[CHUNK];  // c4, c5, log-alpha threshold, depth
+  __shared__ float4 s_col[CHUNK];  // r, g, b, mean x - tile centre x
+  __shared__ float2 s_aux[CHUNK];  // mean y - tile centre y, opacity
+  __shared__ float s_part[NWARPS][CHUNK][NSUM];  // 48128 B in all
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p % 32, warp = p / 32;
+  const int t = order[blockIdx.x];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  // the warp's partials column this lane stores after each instance
+  const int slot = scatter_slot(lane);
+  float* const part = slot >= 0 ? &s_part[warp][0][slot] : nullptr;
   const int start = starts[t];
   const int end = ends[t];
   const int astart = (start / CHUNK) * CHUNK;
   const float* saved = out_saved + (long long)t * OUT_ROWS * P;
   const int c_done = (int)saved[4 * P];
 
-  const float x = (float)(p % TILE) + 0.5f - 0.5f * TILE;
-  const float y = (float)(p / TILE) + 0.5f - 0.5f * TILE;
-  const float xx = x * x, xy = x * y, yy = y * y;
+  const int px = tid % TILE;
+  const int py0 = (tid / TILE) * PIX;
+  const float x = (float)px + 0.5f - 0.5f * TILE;
+  const float xx = x * x;
   const float ox = (float)((t % tiles_x) * TILE) + 0.5f * TILE;
   const float oy = (float)((t / tiles_x) * TILE) + 0.5f * TILE;
-  const float zb = zbuf != nullptr ? zbuf[(long long)t * P + p] : -CUDART_INF_F;
-
   const float* go = g_out + (long long)t * gch * P;
-  const float gr = go[0 * P + p], gg = go[1 * P + p], gb = go[2 * P + p];
-  const float gd = gch > 4 ? go[5 * P + p] : 0.0f;
-  const float lt_final = saved[6 * P + p];
-  const float gtt = go[3 * P + p] * expf(lt_final);
 
-  float lt_after = lt_final;  // log T behind the current instance
-  float S = 0.0f;             // sum over later fragments of alpha T (g . c)
+  float y[PIX], xy[PIX], yy[PIX], zb[PIX];
+  float gr[PIX], gg[PIX], gb[PIX], gd[PIX], gtt[PIX];
+  float lt_after[PIX];  // log T behind the current instance
+  float S[PIX];         // sum over later fragments of alpha T (g . c)
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const int pp = (py0 + j) * TILE + px;
+    y[j] = (float)(py0 + j) + 0.5f - 0.5f * TILE;
+    xy[j] = x * y[j];
+    yy[j] = y[j] * y[j];
+    zb[j] = zbuf != nullptr ? zbuf[(long long)t * P + pp] : -CUDART_INF_F;
+    gr[j] = go[0 * P + pp];
+    gg[j] = go[1 * P + pp];
+    gb[j] = go[2 * P + pp];
+    gd[j] = gch > 4 ? go[5 * P + pp] : 0.0f;
+    lt_after[j] = saved[6 * P + pp];
+    gtt[j] = go[3 * P + pp] * expf(lt_after[j]);
+    S[j] = 0.0f;
+  }
 
   for (int c = c_done - 1; c >= 0; --c) {
     const int base = astart + c * CHUNK;
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
     __syncthreads();  // the previous chunk's readers of shared memory
-    if (p >= lo && p < hi) {
-      const Decoded d = decode_row<PACKED16>(rows, (long long)base + p);
-      const float ca = d.ca, cb = d.cb, cc = d.cc;
-      const float lnopa = logf(fmaxf(d.opa, 1e-30f));
+    if (tid >= lo && tid < hi) {  // hi <= 128: the first 128 threads
+      const Decoded d = decode_row<PACKED16>(rows, (long long)base + tid);
       const float mxl = d.mx - ox, myl = d.my - oy;
-      s_coef[0][p] =
-          -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa;
-      s_coef[1][p] = ca * mxl + cb * myl;
-      s_coef[2][p] = cc * myl + cb * mxl;
-      s_coef[3][p] = -0.5f * ca;
-      s_coef[4][p] = -cb;
-      s_coef[5][p] = -0.5f * cc;
-      s_thr[p] = lnopa - 4.0f;
-      s_col[0][p] = d.r;
-      s_col[1][p] = d.g;
-      s_col[2][p] = d.b;
-      s_col[3][p] = d.depth;
-      s_mxl[p] = mxl;
-      s_myl[p] = myl;
-      s_opa[p] = d.opa;
+      power_records(d, mxl, myl, s_pow[tid], s_cut[tid]);
+      s_col[tid] = make_float4(d.r, d.g, d.b, mxl);
+      s_aux[tid] = make_float2(myl, d.opa);
     }
     __syncthreads();
 
     for (int i = hi - 1; i >= lo; --i) {
-      const float power = s_coef[0][i] + s_coef[1][i] * x + s_coef[2][i] * y +
-                          s_coef[3][i] * xx + s_coef[4][i] * xy +
-                          s_coef[5][i] * yy;
-      const bool valid = power >= s_thr[i] && s_col[3][i] > zb;
+      const float4 ct = s_cut[i];
+      float power[PIX];
+      bool hit[PIX];
+      const bool any =
+          eval_power(s_pow[i], ct, x, xx, y, xy, yy, zb, power, hit);
       float v[NSUM];
 #pragma unroll
       for (int k = 0; k < NSUM; ++k) v[k] = 0.0f;
-      if (valid) {
-        const float pe = has_clip ? fminf(power, log_clip) : power;
-        const float alpha = expf(pe);
-        float s = log1pf(-alpha);
-        if (clamp_log_om) s = fmaxf(s, LOG_OM_MIN);
-        const float lt_k = lt_after - s;  // log T in front of instance i
-        const float tk = expf(lt_k);
-        const float gdotc = gr * s_col[0][i] + gg * s_col[1][i] +
-                            gb * s_col[2][i] + gd * s_col[3][i];
-        const float tg = tk * gdotc;
-        float om = 1.0f - alpha;
-        if (om_floor) om = om > 1e-6f ? om : 1e-6f;
-        float g_alpha = tg - (S + gtt) / om;
-        if (has_clip && !(power < log_clip)) g_alpha = 0.0f;
-        const float g_pow = g_alpha * alpha;
-        const float w = alpha * tk;
-        S += alpha * tg;
-        lt_after = lt_k;
-        const float dx = x - s_mxl[i], dy = y - s_myl[i];
-        v[0] = g_pow;
-        v[1] = g_pow * dx;
-        v[2] = g_pow * dy;
-        v[3] = g_pow * dx * dx;
-        v[4] = g_pow * dx * dy;
-        v[5] = g_pow * dy * dy;
-        v[6] = w * gr;
-        v[7] = w * gg;
-        v[8] = w * gb;
-        v[9] = w * gd;
-      }
-      if (__any_sync(FULL, valid)) {
+      if (any) {
+        const float4 col = s_col[i];
+        const float myl = s_aux[i].x;
 #pragma unroll
-        for (int k = 0; k < NSUM; ++k) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            v[k] += __shfl_down_sync(FULL, v[k], off);
-          }
+        for (int j = 0; j < PIX; ++j) {
+          if (!hit[j]) continue;
+          const float pe = has_clip ? fminf(power[j], log_clip) : power[j];
+          const float alpha = expf(pe);
+          float s = log1pf(-alpha);
+          if (clamp_log_om) s = fmaxf(s, LOG_OM_MIN);
+          const float lt_k = lt_after[j] - s;  // log T in front of i
+          const float tk = expf(lt_k);
+          const float gdotc =
+              gr[j] * col.x + gg[j] * col.y + gb[j] * col.z + gd[j] * ct.w;
+          const float tg = tk * gdotc;
+          float om = 1.0f - alpha;
+          if (om_floor) om = om > 1e-6f ? om : 1e-6f;
+          float g_alpha = tg - (S[j] + gtt[j]) / om;
+          if (has_clip && !(power[j] < log_clip)) g_alpha = 0.0f;
+          const float g_pow = g_alpha * alpha;
+          const float w = alpha * tk;
+          S[j] += alpha * tg;
+          lt_after[j] = lt_k;
+          const float dx = x - col.w, dy = y[j] - myl;
+          v[0] += g_pow;
+          v[1] += g_pow * dx;
+          v[2] += g_pow * dy;
+          v[3] += g_pow * dx * dx;
+          v[4] += g_pow * dx * dy;
+          v[5] += g_pow * dy * dy;
+          v[6] += w * gr[j];
+          v[7] += w * gg[j];
+          v[8] += w * gb[j];
+          v[9] += w * gd[j];
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NSUM; ++k) s_part[warp][k][i] = v[k];
-      }
+      const float sum =
+          __any_sync(FULL, any) ? warp_reduce_scatter(v, lane) : 0.0f;
+      if (part != nullptr) part[i * NSUM] = sum;
     }
     __syncthreads();
 
-    if (p >= lo && p < hi) {
+    if (tid >= lo && tid < hi) {
+      const int r = tid;
       float sum[NSUM];
 #pragma unroll
       for (int k = 0; k < NSUM; ++k) {
-        float a = 0.0f;
+        float acc = 0.0f;
 #pragma unroll
-        for (int wi = 0; wi < NWARPS; ++wi) a += s_part[wi][k][p];
-        sum[k] = a;
+        for (int wi = 0; wi < NWARPS; ++wi) acc += s_part[wi][r][k];
+        sum[k] = acc;
       }
       // the conic from its exact power coefficients (-ca/2, -cb, -cc/2)
-      const float ca = -2.0f * s_coef[3][p], cb = -s_coef[4][p];
-      const float cc = -2.0f * s_coef[5][p];
-      const float opa = s_opa[p];
+      const float ca = -2.0f * s_pow[r].w, cb = -s_cut[r].x;
+      const float cc = -2.0f * s_cut[r].y;
+      const float opa = s_aux[r].y;
       float ch[16];
       ch[0] = ca * sum[1] + cb * sum[2];              // mean2d.x
       ch[1] = cb * sum[1] + cc * sum[2];              // mean2d.y
@@ -220,7 +286,7 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
       ch[9] = sum[9];                                 // depth
 #pragma unroll
       for (int k = 10; k < 16; ++k) ch[k] = 0.0f;
-      const long long kk = (long long)base + p;
+      const long long kk = (long long)base + r;
       if (PACKED16) {
         int4* o = reinterpret_cast<int4*>(grad) + 2 * kk;
         o[0] = make_int4(pack_pair(ch[0], ch[8]), pack_pair(ch[1], ch[9]),
@@ -241,13 +307,15 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
 }  // namespace
 
 // rows: (K, 8) int32 packed rows as the forward read them; starts/ends:
-// (num_tiles,) int32; out_saved: (num_tiles, 8, 256) f32 forward output;
+// (num_tiles,) int32; order: (num_tiles,) int32 permutation of the tiles,
+// heaviest first; out_saved: (num_tiles, 8, 256) f32 forward output;
 // g_out: (num_tiles, gch, 256) f32 planar cotangent, gch 4 (r, g, b,
 // T_final) or 8 (the forward's rows, depth in row 5); zbuf:
 // (num_tiles, 256) f32 or null; grad: zero-filled (K, 16) f32, or (K, 8)
 // int32 bf16 pairs when packed16.
 extern "C" int splat_rasterize_bwd(const int* rows, const int* starts,
-                                   const int* ends, const float* out_saved,
+                                   const int* ends, const int* order,
+                                   const float* out_saved,
                                    const float* g_out, int gch,
                                    const float* zbuf, void* grad,
                                    int num_tiles, int tiles_x, int has_clip,
@@ -257,12 +325,12 @@ extern "C" int splat_rasterize_bwd(const int* rows, const int* starts,
   if (num_tiles == 0) return 0;
   const int4* r = reinterpret_cast<const int4*>(rows);
   if (packed16) {
-    rasterize_bwd_kernel<true><<<num_tiles, P, 0, stream>>>(
-        r, starts, ends, out_saved, g_out, gch, zbuf, grad, tiles_x,
+    rasterize_bwd_kernel<true><<<num_tiles, THREADS, 0, stream>>>(
+        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
         has_clip, log_clip, clamp_log_om, om_floor);
   } else {
-    rasterize_bwd_kernel<false><<<num_tiles, P, 0, stream>>>(
-        r, starts, ends, out_saved, g_out, gch, zbuf, grad, tiles_x,
+    rasterize_bwd_kernel<false><<<num_tiles, THREADS, 0, stream>>>(
+        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
         has_clip, log_clip, clamp_log_om, om_floor);
   }
   return (int)cudaGetLastError();

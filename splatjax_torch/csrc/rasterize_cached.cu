@@ -11,13 +11,19 @@
 // no order here, and the rows stay instance-major (64 B per instance, four
 // 16-byte loads).
 //
-// What bounds it on the H100: as for K2, the per-fragment arithmetic; the
-// projection adds about 190 f32 operations per walked instance, 1/256 of
-// a tile's fragments each, and the rows are 64 B instead of 32 B.
+// What bounds it on the H100: as for K2, the per-fragment arithmetic and
+// the deepest tiles' latency; the projection adds about 190 f32 operations
+// per walked instance, 1/256 of a tile's fragments each, and the rows are
+// 64 B instead of 32 B. Against stale bins the deepest tile can lose its
+// early stop: at an orbit eye of the 1M-splat 1920x1080 frame it walks
+// 4,793 instances (3,238 at the bins' camera), and that one tile alone
+// sets most of the kernel's time (measured on an H100 SXM at 700 W).
 //
 // Design: the shared fragment loop of composite.cuh (one block per 16x16
-// tile, globally aligned 128-instance chunks, __syncthreads_or early stop),
-// fed by a row source that loads one cached row and projects it:
+// tile taken heaviest first, two pixels a thread, globally aligned
+// 128-instance chunks split between two thread groups, __syncthreads_or
+// early stop), fed by a row source that loads one cached row and projects
+// it:
 // * the row is [mean xyz, cov6 (xx xy xz yy yz zz), rgb, opacity,
 //   max_scale, 0, 0] (splatjax's pack_cached_rows);
 // * the camera (row-major modelview and projection, width, height) is a
@@ -30,8 +36,11 @@
 //   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
 //   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
 //   it), so a degenerate instance decodes to the same values in both;
-// * only the 128 threads of a chunk's instances project; the other 128
-//   wait at the barrier.
+// * the first thread group (128 threads, one row each) projects a chunk's
+//   rows; the second, which composites the chunk's back half, waits at the
+//   barrier. K3 takes about 3% longer than K2 on the same frame, for the
+//   projection and the 64-byte rows together, so the idle group costs at
+//   most that.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -172,7 +181,7 @@ struct CachedRows {
   }
 };
 
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(THREADS)
 rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
   composite_tile(src, args);
 }
@@ -182,11 +191,13 @@ rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
 // prm: (K, 16) f32 cached parameter rows in tile order, 16-byte aligned;
 // mv, pr: host pointers to the row-major 4x4 modelview and projection (read
 // here, passed to the kernel by value); starts/ends: (num_tiles,) int32;
-// out: (num_tiles, 8, 256) f32.
+// order: (num_tiles,) int32 permutation of the tiles, heaviest first; out:
+// (num_tiles, 8, 256) f32.
 extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
                                           const float* pr, int width,
                                           int height, const int* starts,
-                                          const int* ends, float* out,
+                                          const int* ends, const int* order,
+                                          float* out,
                                           int num_tiles, int tiles_x,
                                           int has_clip, float log_clip,
                                           int clamp_log_om, float log_eps,
@@ -200,8 +211,9 @@ extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
   }
   src.cam.width = width;
   src.cam.height = height;
-  const CompositeArgs args{starts,   ends,     nullptr,      out,    tiles_x,
-                           has_clip, log_clip, clamp_log_om, log_eps};
-  rasterize_cached_kernel<<<num_tiles, P, 0, stream>>>(src, args);
+  const CompositeArgs args{starts,  ends,     order,        nullptr,
+                           out,     tiles_x,  has_clip,     log_clip,
+                           clamp_log_om, log_eps};
+  rasterize_cached_kernel<<<num_tiles, THREADS, 0, stream>>>(src, args);
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,14 @@
 // accumulators to planar rows with identity matmuls. Those are MXU/VMEM
 // artefacts; this kernel is the standard CUDA 3DGS tile rasterizer.
 //
-// What bounds it on the H100: the per-fragment arithmetic. Each walked
-// fragment (instance x pixel) costs the 6-term power polynomial and, where
-// the fragment is inside the exp(-4) support, exp + log1p + exp; bytes are
-// small (32 B per instance read once per tile, 8 KB written per tile).
+// What bounds it on the H100: the per-fragment arithmetic and the deepest
+// tiles' latency, not bytes (32 B per instance read once per tile, 8 KB
+// written per tile). Each walked fragment (instance x pixel) costs the
+// 6-term power polynomial and, inside the exp(-4) support, exp + log1p +
+// exp. On the 1M-splat 1920x1080 frame (an H100 SXM at 700 W) the
+// deepest tile walks 3,238 instances, 14x the mean, and alone takes over
+// half of the whole frame's kernel time; taken heaviest first and walked
+// by 8 warps (composite.cuh), it no longer finishes last.
 //
 // Design: the shared fragment loop of composite.cuh, fed by a row source
 // that loads one 32-byte row (two 16-byte loads) per instance and decodes
@@ -40,7 +44,7 @@ struct PackedRows {
 };
 
 template <bool PACKED16>
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(THREADS)
 rasterize_fwd_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
   composite_tile(src, args);
 }
@@ -48,23 +52,26 @@ rasterize_fwd_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
 }  // namespace
 
 // rows: (K, 8) int32 packed instance rows, tile-sorted (16-byte training
-// rows when packed16); starts/ends: (num_tiles,) int32; zbuf:
+// rows when packed16); starts/ends: (num_tiles,) int32; order:
+// (num_tiles,) int32 permutation of the tiles, heaviest first; zbuf:
 // (num_tiles, 256) f32 camera z or null; out: (num_tiles, 8, 256) f32.
 extern "C" int splat_rasterize_fwd(const int* rows, const int* starts,
-                                   const int* ends, const float* zbuf,
+                                   const int* ends, const int* order,
+                                   const float* zbuf,
                                    float* out, int num_tiles, int tiles_x,
                                    int has_clip, float log_clip,
                                    int clamp_log_om, float log_eps,
                                    int packed16, cudaStream_t stream) {
   if (num_tiles == 0) return 0;
   const int4* r = reinterpret_cast<const int4*>(rows);
-  const CompositeArgs args{starts,   ends,     zbuf,         out,    tiles_x,
-                           has_clip, log_clip, clamp_log_om, log_eps};
+  const CompositeArgs args{starts,  ends,     order,        zbuf,
+                           out,     tiles_x,  has_clip,     log_clip,
+                           clamp_log_om, log_eps};
   if (packed16) {
-    rasterize_fwd_kernel<true><<<num_tiles, P, 0, stream>>>(
+    rasterize_fwd_kernel<true><<<num_tiles, THREADS, 0, stream>>>(
         PackedRows<true>{r}, args);
   } else {
-    rasterize_fwd_kernel<false><<<num_tiles, P, 0, stream>>>(
+    rasterize_fwd_kernel<false><<<num_tiles, THREADS, 0, stream>>>(
         PackedRows<false>{r}, args);
   }
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
 // Packed instance rows shared by the forward (K2) and backward (K4)
 // rasterizers: decode of one 8-lane int32 row, in splatjax's 32-byte viewer
 // layout or its 16-byte training layout (splatjax/ops/rasterize.py
-// unpack_chunk / unpack_chunk16), to f32 features.
+// unpack_chunk / unpack_chunk16), to f32 features; and the two records of
+// an instance's power polynomial that every fragment loop (K2, K3, K4)
+// keeps in shared memory and evaluates at a thread's pixels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +50,44 @@ __device__ __forceinline__ Decoded decode_row(const int4* __restrict__ rows,
     d.depth = __int_as_float(b.w);
   }
   return d;
+}
+
+// Instance d's power polynomial in tile-centred coordinates, (mxl, myl) =
+// its mean minus the tile centre: pw = (c0, c1, c2, c3), ct = (c4, c5,
+// log-alpha threshold, depth), with log alpha = c0 + c1 x + c2 y + c3 x^2
+// + c4 xy + c5 y^2 (splatjax's coefficient formulation).
+__device__ __forceinline__ void power_records(const Decoded& d, float mxl,
+                                              float myl, float4& pw,
+                                              float4& ct) {
+  const float ca = d.ca, cb = d.cb, cc = d.cc;
+  const float lnopa = logf(fmaxf(d.opa, 1e-30f));
+  pw = make_float4(
+      -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa,
+      ca * mxl + cb * myl, cc * myl + cb * mxl, -0.5f * ca);
+  ct = make_float4(-cb, -0.5f * cc, lnopa - 4.0f, d.depth);
+}
+
+// An instance's log alpha before the clip at a thread's N pixels (x, y[j])
+// from its records, term for term in this order: another association or
+// FMA contraction flips fragments on the exp(-4) cutoff. hit[j]: inside
+// the support and in front of the z-buffer. Returns whether any is hit.
+template <int N>
+__device__ __forceinline__ bool eval_power(const float4 pw, const float4 ct,
+                                           float x, float xx,
+                                           const float (&y)[N],
+                                           const float (&xy)[N],
+                                           const float (&yy)[N],
+                                           const float (&zb)[N],
+                                           float (&power)[N], bool (&hit)[N]) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    power[j] = pw.x + pw.y * x + pw.z * y[j] + pw.w * xx + ct.x * xy[j] +
+               ct.y * yy[j];
+    hit[j] = power[j] >= ct.z && ct.w > zb[j];
+    any |= hit[j];
+  }
+  return any;
 }
 
 }  // namespace

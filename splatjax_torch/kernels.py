@@ -9,17 +9,19 @@ loaded at import time.
 
 ``LAUNCHES`` counts kernel launches per kernel (a library can hold more
 than one); each wrapper adds one where it launches its kernel, and nowhere
-else.
+else. :func:`timed_launches` brackets the launches of one C entry with
+CUDA events, for timing a kernel apart from its wrapper.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Iterable, Iterator, Optional
 
 import torch
 
@@ -119,6 +121,33 @@ def function(lib: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _functions[key] = fn
     return _functions[key]
+
+
+@contextlib.contextmanager
+def timed_launches(lib: str, name: str) -> Iterator[list]:
+    """Within the block, each call of the C entry ``name`` of library
+    ``lib`` (loaded by an earlier launch) is bracketed by two CUDA events
+    recorded on the current stream, the stream every wrapper launches on.
+    Yields the list that collects one (start, stop) pair per launch; the
+    wrapper's other device work (allocations, fills) falls outside."""
+    key = (lib, name)
+    raw = _functions[key]
+    pairs: list = []
+
+    def launch(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = raw(*args)
+        stop.record()
+        pairs.append((start, stop))
+        return err
+
+    _functions[key] = launch
+    try:
+        yield pairs
+    finally:
+        _functions[key] = raw
 
 
 def check_launch(counter: str, err: int) -> None:

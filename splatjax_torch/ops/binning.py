@@ -8,7 +8,9 @@
    per-instance (tile, gaussian) in depth-major order;
 4. one stable sort of the instances by tile id, so depth order within a
    tile comes for free;
-5. per-tile [start, end) by a search over the sorted tile ids.
+5. per-tile [start, end) by a search over the sorted tile ids, and the
+   rasterizers' block order over the tiles, longest list first
+   (:func:`tile_order`).
 
 Capacity truncation drops the depth-farthest instances. The whole path
 stays on the device: ``num_instances`` and ``overflow`` are 0-d tensors.
@@ -87,12 +89,15 @@ class TileConfig:
 class BinnedInstances(NamedTuple):
     """Fixed-capacity, tile-sorted duplicated instances. The trailing run
     residuals (cum/count/perm/cum_d/count_d, int32) are what the backward's
-    segment sum will consume."""
+    segment sum will consume. ``order`` is the rasterizer kernels' block
+    order over the tiles (:func:`tile_order` of ``ends - starts``), built
+    here once per binning and used by K2, K3 and K4 on these bounds."""
 
     gauss_id: torch.Tensor       # (K_cap,) int32 source gaussian
     tile_id: torch.Tensor        # (K_cap,) int32; num_tiles = sentinel
     starts: torch.Tensor         # (num_tiles,) int32
     ends: torch.Tensor           # (num_tiles,) int32
+    order: torch.Tensor          # (num_tiles,) int32 tiles, heaviest first
     num_instances: torch.Tensor  # () int32, total before the capacity cut
     overflow: torch.Tensor       # () int32, instances dropped
     cum: Optional[torch.Tensor] = None      # (N,) inclusive instance cumsum
@@ -254,6 +259,15 @@ def depth_order(proj: ProjectedGaussians, cfg: TileConfig) -> DepthOrder:
     )
 
 
+def tile_order(work: torch.Tensor) -> torch.Tensor:
+    """The order in which the rasterizer kernels' blocks take their tiles:
+    a permutation of all tiles by descending ``work`` (the tile's list
+    length), ties in index order, as (T,) int32. Block b draws tile
+    ``order[b]``, so the deepest tiles start first instead of finishing
+    last; results do not depend on it. On the device, no host sync."""
+    return torch.argsort(work, descending=True, stable=True).to(torch.int32)
+
+
 def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
                   capacity: int) -> BinnedInstances:
     """Build the tile-sorted instance lists with static capacity K_cap.
@@ -270,6 +284,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
                                device=dev),
             starts=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
             ends=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
+            order=torch.arange(cfg.num_tiles, dtype=i32, device=dev),
             num_instances=zero,
             overflow=zero,
         )
@@ -283,8 +298,8 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
 
     # one stable sort by tile id: depth-major expansion order keeps exact
     # front-to-back order within each tile; sentinels sort last
-    tile_sorted, order = torch.sort(tile, stable=True)
-    gid_sorted = gid[order]
+    tile_sorted, by_tile = torch.sort(tile, stable=True)
+    gid_sorted = gid[by_tile]
 
     # tile t's instances start at the first sorted id >= t; a search (not
     # a bincount) needs no host sync to size its output
@@ -294,11 +309,13 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
         out_int32=True,
     )
 
+    starts, ends = bounds[:-1], bounds[1:]
     return BinnedInstances(
         gauss_id=gid_sorted,
         tile_id=tile_sorted,
-        starts=bounds[:-1],
-        ends=bounds[1:],
+        starts=starts,
+        ends=ends,
+        order=tile_order(ends - starts),
         num_instances=total,
         overflow=torch.clamp_min(total - capacity, 0),
         cum=d.cum,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from splatjax_torch import kernels
-from splatjax_torch.ops.binning import TileConfig
+from splatjax_torch.ops.binning import TileConfig, tile_order
 from splatjax_torch.ops.projection import (
     FRUSTUM_GUARD,
     SIZE_CULL_THRESHOLD,
@@ -49,13 +49,13 @@ _LOG_OM_MIN = -60.0
 _PLAIN_TILE_BATCH = 256
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_int, ctypes.c_void_p]
 )
 _CACHED_ARGTYPES = (
     [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_float)] * 2
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_void_p]
 )
@@ -231,7 +231,19 @@ def rasterize_fwd(rows: torch.Tensor, starts: torch.Tensor,
     rows: (K, 8) int32 packed instance rows in tile order (16-byte training
     rows when ``packed16``); starts/ends: (T,) int32; zbuf: optional
     (T, P, 1) camera-z buffer (fragments at or behind it are discarded).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    whose blocks take the tiles longest list first (:func:`tile_order` of
+    ``ends - starts``)."""
+    return _rasterize_fwd(rows, starts, ends, None, cfg, alpha_clip,
+                          early_stop, zbuf, packed16)
+
+
+def _rasterize_fwd(rows, starts, ends, order: Optional[torch.Tensor],
+                   cfg: TileConfig, alpha_clip, early_stop, zbuf,
+                   packed16: bool) -> torch.Tensor:
+    """:func:`rasterize_fwd` with the kernel's block order: the
+    ``BinnedInstances.order`` that binning built with these bounds (the
+    library's own, so not checked), or None to build it here."""
     dev = _check_raster_inputs(rows, starts, ends, zbuf, cfg)
     if dev.type == "cpu":
         return rasterize_fwd_plain(rows, starts, ends, cfg, alpha_clip,
@@ -240,12 +252,15 @@ def rasterize_fwd(rows: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((cfg.num_tiles, 8, cfg.pixels_per_tile),
                       dtype=torch.float32, device=dev)
+    if order is None:
+        order = tile_order(ends - starts)
     lc = log_clip(alpha_clip)
     fn = kernels.function("rasterize_fwd", "splat_rasterize_fwd", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-            None if zbuf is None else zbuf.data_ptr(), out.data_ptr(),
+            order.data_ptr(), None if zbuf is None else zbuf.data_ptr(),
+            out.data_ptr(),
             cfg.num_tiles, cfg.tiles_x, int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
@@ -489,7 +504,18 @@ def rasterize_cached_fwd(prm: torch.Tensor, camera: CachedCamera,
 
     prm: (K, 16) f32 cached rows in tile order (:func:`pack_cached_rows`);
     camera: :func:`cached_camera` of the frame. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, whose blocks take the tiles
+    longest list first (:func:`tile_order` of ``ends - starts``)."""
+    return _rasterize_cached_fwd(prm, camera, starts, ends, None, cfg,
+                                 alpha_clip, early_stop)
+
+
+def _rasterize_cached_fwd(prm, camera: CachedCamera, starts, ends,
+                          order: Optional[torch.Tensor], cfg: TileConfig,
+                          alpha_clip, early_stop) -> torch.Tensor:
+    """:func:`rasterize_cached_fwd` with the kernel's block order: the
+    ``BinnedInstances.order`` that binning built with these bounds (the
+    library's own, so not checked), or None to build it here."""
     dev = _check_rows(prm, "prm", CACHED_ROWS, torch.float32)
     _check_bounds(starts, ends, cfg, dev)
     if (camera.width, camera.height) != (cfg.width, cfg.height):
@@ -504,6 +530,8 @@ def rasterize_cached_fwd(prm: torch.Tensor, camera: CachedCamera,
         raise ValueError("prm must be 16-byte aligned")
     out = torch.empty((cfg.num_tiles, 8, cfg.pixels_per_tile),
                       dtype=torch.float32, device=dev)
+    if order is None:
+        order = tile_order(ends - starts)
     lc = log_clip(alpha_clip)
     mat = ctypes.c_float * 16
     fn = kernels.function("rasterize_cached", "splat_rasterize_cached_fwd",
@@ -512,7 +540,8 @@ def rasterize_cached_fwd(prm: torch.Tensor, camera: CachedCamera,
         err = fn(
             prm.data_ptr(), mat(*camera.modelview), mat(*camera.projection),
             camera.width, camera.height, starts.data_ptr(), ends.data_ptr(),
-            out.data_ptr(), cfg.num_tiles, cfg.tiles_x, int(lc is not None),
+            order.data_ptr(), out.data_ptr(), cfg.num_tiles, cfg.tiles_x,
+            int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
             kernels.stream_of(dev),

@@ -36,15 +36,18 @@ import torch
 from splatjax_torch import kernels
 from splatjax_torch.ops.binning import (
     FEAT_DIM,
+    BinnedInstances,
     TileConfig,
     segment_sum_by_gid,
     segment_sum_by_gid_packed_bf16,
+    tile_order,
 )
 from splatjax_torch.ops.rasterize import (
     CHUNK,
     _LOG_OM_MIN,
     _PLAIN_TILE_BATCH,
     _check_raster_inputs,
+    _rasterize_fwd,
     clip_bounds_alpha,
     decode_rows,
     fragment_power,
@@ -53,13 +56,12 @@ from splatjax_torch.ops.rasterize import (
     pack_feature_rows,
     pack_table,
     pixel_coords,
-    rasterize_fwd,
     tiles_to_image,
 )
 from splatjax_torch.ops.segreduce import PACKED_PLANES
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
     + [ctypes.c_void_p]
 )
@@ -110,7 +112,19 @@ def rasterize_bwd(rows: torch.Tensor, starts: torch.Tensor,
     cotangent (T, 4, P) [r, g, b, T_final] or (T, 8, P) (depth in row 5).
     Returns (K, 16) f32 rows, or (K, 8) int32 bf16 pairs when
     ``packed16``; rows of instances the forward did not walk are zero.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    whose blocks take the tiles longest list first (:func:`tile_order` of
+    ``ends - starts``)."""
+    return _rasterize_bwd(rows, starts, ends, None, out_saved, g_out, cfg,
+                          alpha_clip, zbuf, packed16)
+
+
+def _rasterize_bwd(rows, starts, ends, order: Optional[torch.Tensor],
+                   out_saved, g_out, cfg: TileConfig, alpha_clip, zbuf,
+                   packed16: bool) -> torch.Tensor:
+    """:func:`rasterize_bwd` with the kernel's block order: the
+    ``BinnedInstances.order`` that binning built with these bounds (the
+    library's own, so not checked), or None to build it here."""
     dev = _check_bwd_inputs(rows, starts, ends, out_saved, g_out, zbuf, cfg)
     if dev.type == "cpu":
         return rasterize_bwd_plain(rows, starts, ends, out_saved, g_out, cfg,
@@ -121,12 +135,15 @@ def rasterize_bwd(rows: torch.Tensor, starts: torch.Tensor,
     grad = (torch.zeros((k, PACKED_PLANES), dtype=torch.int32, device=dev)
             if packed16 else
             torch.zeros((k, FEAT_DIM), dtype=torch.float32, device=dev))
+    if order is None:
+        order = tile_order(ends - starts)
     lc = log_clip(alpha_clip)
     fn = kernels.function("rasterize_bwd", "splat_rasterize_bwd", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-            out_saved.data_ptr(), g_out.data_ptr(), g_out.shape[1],
+            order.data_ptr(), out_saved.data_ptr(), g_out.data_ptr(),
+            g_out.shape[1],
             None if zbuf is None else zbuf.data_ptr(), grad.data_ptr(),
             cfg.num_tiles, cfg.tiles_x, int(lc is not None),
             0.0 if lc is None else lc,
@@ -263,10 +280,11 @@ def image_cotangent_to_tiles(gimg: torch.Tensor, cfg: TileConfig,
     return g.reshape(ty_n * tx_n, 4, th * tw).contiguous()
 
 
-def _grad_rows_to_gaussians(g_rows, binned_res):
+def _grad_rows_to_gaussians(g_rows, b: BinnedInstances):
     """Gather transpose on K4's output form: bf16 pairs (16-byte rows) go
     to K7, f32 rows to :func:`segment_sum_by_gid`. Returns (N, 16)."""
-    gid, cum, count, perm, cum_d, count_d, overflow = binned_res
+    gid, cum, count, perm, cum_d, count_d, overflow = (
+        b.gauss_id, b.cum, b.count, b.perm, b.cum_d, b.count_d, b.overflow)
     if g_rows.dtype == torch.int32:
         return segment_sum_by_gid_packed_bf16(g_rows, gid, cum, count, perm,
                                               cum_d, count_d, overflow)
@@ -282,8 +300,10 @@ class _RasterizeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat_fm, starts, ends, cfg, alpha_clip, early_stop):
         rows = pack_feature_rows(feat_fm.detach().float())
-        out = rasterize_fwd(rows, starts, ends, cfg, alpha_clip, early_stop)
-        ctx.save_for_backward(rows, starts, ends, out)
+        order = tile_order(ends - starts)  # K2's and K4's block order
+        out = _rasterize_fwd(rows, starts, ends, order, cfg, alpha_clip,
+                             early_stop, None, False)
+        ctx.save_for_backward(rows, starts, ends, order, out)
         ctx.cfg, ctx.alpha_clip, ctx.c = cfg, alpha_clip, feat_fm.shape[0]
         chunks = out[:, 4, 0].to(torch.int32)
         ctx.mark_non_differentiable(chunks)
@@ -291,9 +311,10 @@ class _RasterizeTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_chunks):
-        rows, starts, ends, out = ctx.saved_tensors
-        g = rasterize_bwd(rows, starts, ends, out, g_out.float().contiguous(),
-                          ctx.cfg, ctx.alpha_clip)
+        rows, starts, ends, order, out = ctx.saved_tensors
+        g = _rasterize_bwd(rows, starts, ends, order, out,
+                           g_out.float().contiguous(), ctx.cfg,
+                           ctx.alpha_clip, None, False)
         return g[:, :ctx.c].T, None, None, None, None, None
 
 
@@ -313,13 +334,12 @@ def rasterize_tiles(feat_fm: torch.Tensor, starts: torch.Tensor,
 
 class _RasterizeGathered(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat_n, binned_res, starts, ends, zbuf, cfg,
-                alpha_clip, early_stop, packed16):
-        rows = _gathered_rows(feat_n, binned_res[0], packed16)
-        out = rasterize_fwd(rows, starts, ends, cfg, alpha_clip, early_stop,
-                            zbuf, packed16)
-        ctx.save_for_backward(rows, starts, ends, out)
-        ctx.binned_res, ctx.zbuf = binned_res, zbuf
+    def forward(ctx, feat_n, b, zbuf, cfg, alpha_clip, early_stop, packed16):
+        rows = _gathered_rows(feat_n, b.gauss_id, packed16)
+        out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg,
+                             alpha_clip, early_stop, zbuf, packed16)
+        ctx.save_for_backward(rows, out)
+        ctx.b, ctx.zbuf = b, zbuf
         ctx.cfg, ctx.alpha_clip, ctx.packed16 = cfg, alpha_clip, packed16
         chunks = out[:, 4, 0].to(torch.int32)
         ctx.mark_non_differentiable(chunks)
@@ -327,70 +347,70 @@ class _RasterizeGathered(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_chunks):
-        rows, starts, ends, out = ctx.saved_tensors
-        g_rows = rasterize_bwd(rows, starts, ends, out,
-                               g_out.float().contiguous(), ctx.cfg,
-                               ctx.alpha_clip, ctx.zbuf, ctx.packed16)
-        seg = _grad_rows_to_gaussians(g_rows, ctx.binned_res)
-        return (seg,) + (None,) * 8
+        rows, out = ctx.saved_tensors
+        b = ctx.b
+        g_rows = _rasterize_bwd(rows, b.starts, b.ends, b.order, out,
+                                g_out.float().contiguous(), ctx.cfg,
+                                ctx.alpha_clip, ctx.zbuf, ctx.packed16)
+        seg = _grad_rows_to_gaussians(g_rows, b)
+        return (seg,) + (None,) * 6
 
 
-def rasterize_gathered(feat_n, gid, starts, ends, cum, count, perm, cum_d,
-                       count_d, overflow, zbuf, cfg: TileConfig,
+def rasterize_gathered(feat_n, bins: BinnedInstances, zbuf, cfg: TileConfig,
                        alpha_clip: Optional[float] = None,
                        early_stop: float = 1e-4, packed16: bool = False):
-    """Fused gather + rasterize with one backward (splatjax's signature).
+    """Fused gather + rasterize with one backward (splatjax's, on the
+    index as one argument).
 
-    feat_n: (N, 16) f32 unpacked per-gaussian features; gid/starts/ends and
-    the run residuals come from ``bin_gaussians``; zbuf: optional (T, P, 1).
-    ``packed16`` moves instances as 16-byte training rows. The backward runs
-    K4 and the gather transpose and returns the (N, 16) feature gradient.
-    Returns (out_tiles planar (T, 8, P), chunks_done (T,))."""
-    res = (gid, cum, count, perm, cum_d, count_d, overflow)
-    return _RasterizeGathered.apply(feat_n, res, starts, ends, zbuf, cfg,
-                                    alpha_clip, early_stop, packed16)
+    feat_n: (N, 16) f32 unpacked per-gaussian features; bins: the
+    ``bin_gaussians`` index (gather ids, tile bounds and block order, run
+    residuals); zbuf: optional (T, P, 1). ``packed16`` moves instances as
+    16-byte training rows. The backward runs K4 and the gather transpose
+    and returns the (N, 16) feature gradient. Returns (out_tiles planar
+    (T, 8, P), chunks_done (T,))."""
+    return _RasterizeGathered.apply(feat_n, bins, zbuf, cfg, alpha_clip,
+                                    early_stop, packed16)
 
 
 class _RenderImageGathered(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat_n, background, binned_res, starts, ends, zbuf, cfg,
-                alpha_clip, early_stop, packed16):
-        rows = _gathered_rows(feat_n, binned_res[0], packed16)
-        out = rasterize_fwd(rows, starts, ends, cfg, alpha_clip, early_stop,
-                            zbuf, packed16)
+    def forward(ctx, feat_n, background, b, zbuf, cfg, alpha_clip,
+                early_stop, packed16):
+        rows = _gathered_rows(feat_n, b.gauss_id, packed16)
+        out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg,
+                             alpha_clip, early_stop, zbuf, packed16)
         bg = None if background is None else background.detach()
-        ctx.save_for_backward(rows, starts, ends, out)
-        ctx.binned_res, ctx.zbuf, ctx.bg = binned_res, zbuf, bg
+        ctx.save_for_backward(rows, out)
+        ctx.b, ctx.zbuf, ctx.bg = b, zbuf, bg
         ctx.cfg, ctx.alpha_clip, ctx.packed16 = cfg, alpha_clip, packed16
         return tiles_to_image(out, cfg, bg)
 
     @staticmethod
     def backward(ctx, gimg):
-        rows, starts, ends, out = ctx.saved_tensors
+        rows, out = ctx.saved_tensors
+        b = ctx.b
         g4 = image_cotangent_to_tiles(gimg, ctx.cfg, ctx.bg)
         seg = None
         if ctx.needs_input_grad[0]:
-            g_rows = rasterize_bwd(rows, starts, ends, out, g4, ctx.cfg,
-                                   ctx.alpha_clip, ctx.zbuf, ctx.packed16)
-            seg = _grad_rows_to_gaussians(g_rows, ctx.binned_res)
+            g_rows = _rasterize_bwd(rows, b.starts, b.ends, b.order, out, g4,
+                                    ctx.cfg, ctx.alpha_clip, ctx.zbuf,
+                                    ctx.packed16)
+            seg = _grad_rows_to_gaussians(g_rows, b)
         g_bg = None
         if ctx.needs_input_grad[1]:
             # image rgb = tile rgb + T * bg: d/d bg_c = sum_pixels g_c T
             g_bg = torch.einsum("tcp,tp->c", g4[:, :3, :], out[:, 3, :])
-        return (seg, g_bg) + (None,) * 8
+        return (seg, g_bg) + (None,) * 6
 
 
-def render_image_gathered(feat_n, gid, starts, ends, cum, count, perm, cum_d,
-                          count_d, overflow, background, zbuf,
+def render_image_gathered(feat_n, bins: BinnedInstances, background, zbuf,
                           cfg: TileConfig,
                           alpha_clip: Optional[float] = None,
                           early_stop: float = 1e-4, packed16: bool = False):
-    """Fused gather + rasterize + image assembly with one backward
-    (splatjax's signature): returns the (H, W, 4) image over the optional
-    (3,) ``background``. The backward turns the image cotangent into K4's
-    4-channel tile cotangent directly, and also differentiates
+    """Fused gather + rasterize + image assembly with one backward: returns
+    the (H, W, 4) image over the optional (3,) ``background``; ``bins`` as
+    :func:`rasterize_gathered`. The backward turns the image cotangent into
+    K4's 4-channel tile cotangent directly, and also differentiates
     ``background``."""
-    res = (gid, cum, count, perm, cum_d, count_d, overflow)
-    return _RenderImageGathered.apply(feat_n, background, res, starts, ends,
-                                      zbuf, cfg, alpha_clip, early_stop,
-                                      packed16)
+    return _RenderImageGathered.apply(feat_n, background, bins, zbuf, cfg,
+                                      alpha_clip, early_stop, packed16)

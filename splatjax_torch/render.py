@@ -38,11 +38,11 @@ from splatjax_torch.ops.projection import (
     project_gaussians,
 )
 from splatjax_torch.ops.rasterize import (
+    _rasterize_cached_fwd,
+    _rasterize_fwd,
     cached_camera,
     pack_cached_rows,
     pack_table,
-    rasterize_cached_fwd,
-    rasterize_fwd,
     tiles_to_depth,
     tiles_to_image,
     zbuffer_to_tiles,
@@ -134,14 +134,12 @@ def _draw_binned(proj: ProjectedGaussians, b: BinnedInstances,
     projection's device, or None."""
     feat_n = features_from_projection(proj)
     zbuf_tiles = None if zbuf is None else zbuffer_to_tiles(zbuf, cfg)
-    res = (b.gauss_id, b.starts, b.ends, b.cum, b.count, b.perm, b.cum_d,
-           b.count_d, b.overflow)
     if not return_depth:
         # image-level backward: K4 takes the image cotangent directly
-        return render_image_gathered(feat_n, *res, background, zbuf_tiles,
+        return render_image_gathered(feat_n, b, background, zbuf_tiles,
                                      cfg, alpha_clip, early_stop,
                                      packed16), None
-    out_tiles, _ = rasterize_gathered(feat_n, *res, zbuf_tiles, cfg,
+    out_tiles, _ = rasterize_gathered(feat_n, b, zbuf_tiles, cfg,
                                       alpha_clip, early_stop, packed16)
     return (tiles_to_image(out_tiles, cfg, background),
             tiles_to_depth(out_tiles, cfg))
@@ -329,7 +327,7 @@ class CachedBins(NamedTuple):
     instance in its order, gathered once per resort
     (``bin_scene(cache_params=True)``). A redraw projects these directly,
     with no per-frame gather; a 16-byte redraw is one kernel (K3) on
-    ``prm``."""
+    ``prm``, its tiles taken in ``bins.order``."""
 
     bins: BinnedInstances
     means: torch.Tensor                # (K, 3)
@@ -418,9 +416,9 @@ def render_binned(
     bg = _as_tensor(background, dev)
     if cached and fb == 16 and bins.sh is None and cutout is None \
             and zbuf is None and not viewer_exact and not return_depth:
-        out = rasterize_cached_fwd(
+        out = _rasterize_cached_fwd(
             bins.prm, cached_camera(camera.modelview, camera.projection, w, h),
-            b.starts, b.ends, cfg, clip, early_stop)
+            b.starts, b.ends, b.order, cfg, clip, early_stop)
         return tiles_to_image(out, cfg, bg)
     mv = camera.modelview.to(dev, torch.float32)
     pr = camera.projection.to(dev, torch.float32)
@@ -442,9 +440,10 @@ def render_binned(
         )
         # rows are already in tile order: pack, no gather
         rows = pack_table(features_from_projection(proj), fb == 16)
-        out = rasterize_fwd(rows, b.starts, b.ends, cfg, clip, early_stop,
-                            None if zb is None else zbuffer_to_tiles(zb, cfg),
-                            fb == 16)
+        out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg, clip,
+                             early_stop,
+                             None if zb is None else zbuffer_to_tiles(zb, cfg),
+                             fb == 16)
     img = tiles_to_image(out, cfg, bg)
     return (img, tiles_to_depth(out, cfg)) if return_depth else img
 

@@ -20,7 +20,9 @@ from splatjax.ops.projection import ProjectedGaussians as JProj
 from splatjax.ops.projection import project_gaussians
 from splatjax.scene import build_covariances
 
-from splatjax_torch.ops.binning import TileConfig, bin_gaussians, depth_order
+from splatjax_torch.ops.binning import (
+    TileConfig, bin_gaussians, depth_order, tile_order,
+)
 from splatjax_torch.ops.expand import expand_instances
 from splatjax_torch.ops.projection import ProjectedGaussians as TProj
 
@@ -89,6 +91,25 @@ def test_bin_gaussians_empty_scene():
                  "overflow"):
         np.testing.assert_array_equal(getattr(bt, name).numpy(),
                                       np.asarray(getattr(bj, name)))
+    assert bt.order.tolist() == list(range(TileConfig(32, 32).num_tiles))
+
+
+def test_bin_gaussians_tile_order(projected):
+    """The rasterizers' block order is built with the bounds: every tile
+    once, longest list first, ties (the empty tiles among them) in index
+    order."""
+    _, tp = _both(projected)
+    cfg = TileConfig(W, H)
+    bt = bin_gaussians(tp, cfg, 4096)
+    order = bt.order
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(cfg.num_tiles))
+    assert torch.equal(order, tile_order(bt.ends - bt.starts))
+    n = (bt.ends - bt.starts)[order.long()]
+    assert int(n[0]) > 0 and int(n[-1]) == 0
+    assert bool((n[:-1] >= n[1:]).all())
+    tie = n[:-1] == n[1:]
+    assert bool((order[:-1][tie] < order[1:][tie]).all())
 
 
 def _splatjax_expand(d, capacity, cfg):

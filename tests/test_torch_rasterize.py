@@ -23,7 +23,7 @@ from splatjax.ops.projection import project_gaussians
 from splatjax.scene import build_covariances
 
 from splatjax_torch.ops import rasterize as tr
-from splatjax_torch.ops.binning import TileConfig
+from splatjax_torch.ops.binning import TileConfig, tile_order
 
 W, H = 48, 32
 TOL = 1e-4
@@ -149,6 +149,23 @@ def test_image_assembly_bit_equal():
             tr.zbuffer_to_tiles(_t(zb), cfg_t).numpy(),
             np.asarray(jr.zbuffer_to_tiles(jnp.asarray(zb), cfg_j)),
         )
+
+
+def test_tile_order_heaviest_first():
+    """The rasterizer kernels' block order: a permutation of every tile,
+    longest list first, ties (empty tiles among them) in index order."""
+    work = torch.tensor([0, 5, 3, 5, 0, 9, 1, 3, 0], dtype=torch.int32)
+    order = tile_order(work)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [5, 1, 3, 2, 7, 6, 0, 4, 8]
+    work = _t(np.random.default_rng(3).integers(0, 4, size=2000,
+                                                  dtype=np.int32))
+    order = tile_order(work).long()
+    assert sorted(order.tolist()) == list(range(2000))
+    w = work[order]
+    assert bool((w[:-1] >= w[1:]).all())
+    tie = w[:-1] == w[1:]
+    assert bool((order[:-1][tie] < order[1:][tie]).all())
 
 
 def test_wrapper_rejects_bad_inputs(binned):
