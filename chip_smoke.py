@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from ``splatjax_torch/csrc`` (one nvcc each,
      started together);
-  2. K1 (expansion) against its plain version on the full-width frame:
-     integer-equal;
+  2. K1 (expansion) against its plain version on the full-width frame and
+     on edge cases (a long row of empty gaussians, screen-filling ones,
+     capacity above and below the total): integer-equal; its time by CUDA
+     events and by the profiler, and ``repeat_interleave``'s beside it;
   3. K2 (forward rasterize), 32-byte and 16-byte rows, against its plain
      version: <= 1e-4 on r, g, b, T and depth, chunks_done equal, on 64
      sampled tiles of the full-width frame and on every tile of 192x128
@@ -21,9 +23,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      instances, summed in another order (16-byte rows: plus one bf16 ulp,
      2^-7 of the value, where the two round f32 sums to bf16 apart); two
      runs on the full-width frame give bit-identical rows;
-  5. K5, K6, K7 (segment sums) against their plain versions on the
-     full-width backward's rows (2.8M instances onto 1M gaussians): K6
+  5. K5, K6, K7 (segment sums) on the full-width backward's rows (2.8M
+     instances onto 1M gaussians): the direct entries on gid-sorted rows
+     against their plain versions, and the slot entries the training path
+     takes (rows in tile order, read through the tile sort's inverse)
+     against the gid-sort plain path, run twice (bit-identical); K6
      bit-equal, K5/K7 within (run length) x 2^-23 x (sum of |rows|) per run;
+     the same on long runs (33 to 70,000 rows: the whole-block sums and
+     K6's int64 chunk sums), both entries bit-equal to each other; the
+     gather transpose split into its stages by CUDA events
+     (``[seg-stage]``: the gid-sort path and the slot path, for the 16-byte
+     and the 32-byte i16 step);
      then the tail diagnostics (``[tail]``): walked instances per tile
      (mean, p99, max); K2, K3 and K4 on the deepest tile alone beside the
      whole frame; K4 with its tiles ordered by walked instances against
@@ -59,7 +69,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         camera: K2 and no K3, within 1e-4 of ``render()``;
      capacity = the measured demand of both scenes + 3% (paths a-c) and of
      the base eye and the orbit + 3% (e, f), overflow == 0;
-     frame, step, stage and kernel times, device busy time and idle share.
+     frame, step, stage and kernel times, device busy time and idle share,
+     radix-sort and row-gather kernels per call.
 Then one line with the card's name and power limit, one JSON line with the
 kernel table, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints no result and exits with 1.
@@ -116,6 +127,11 @@ REDRAW_LAPS = 2
 QUEUE_CYCLES = 20_000_000  # device wait (~10 ms) that kernel_ms queues behind
 RESORT_INTERVAL = 8
 LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
+# kernels counted by kind in the profiles: a sort's radix passes, and the
+# row gathers of index_select
+KERNEL_KINDS = {"radix-sort kernels": ("RadixSort",),
+                "row-gather kernels": ("vectorized_gather_kernel",
+                                       "indexSelect")}
 
 
 def log(msg: str) -> None:
@@ -183,6 +199,62 @@ def kernel_ms(fn, reps: int, entry: tuple[str, str], tries: int = 3
             f"before {reps} launches were queued; again with twice the wait")
         cycles *= 2
     raise AssertionError(f"{tries} timings of {entry[1]} outran their wait")
+
+
+def profiler_kernel_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
+    """Mean device time of the records of the kernels whose name holds
+    ``kernel`` in a torch.profiler trace of ``reps`` calls of ``fn`` (no
+    events around the launches), and how many records the trace held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    recs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    n = sum(e.count for e in recs)
+    if n == 0:
+        raise AssertionError(f"no {kernel} records in the profiler trace")
+    return sum(e.self_device_time_total for e in recs) / n / 1e3, n
+
+
+def event_stages(stages, reps: int = 5) -> dict:
+    """Device time of each stage of a pipeline by CUDA events: ``stages``
+    is a list of (name, fn), each fn taking the dict of the earlier stages'
+    results. One warm-up run, then ``reps`` runs queued behind a device
+    wait of QUEUE_CYCLES, so host gaps between launches do not count;
+    returns the mean per stage."""
+    import torch
+
+    def run(events):
+        res = {}
+        if events:
+            events[0].record()
+        for i, (name, fn) in enumerate(stages):
+            res[name] = fn(res)
+            if events:
+                events[i + 1].record()
+
+    run(None)
+    sync()
+    evs = [[torch.cuda.Event(enable_timing=True)
+            for _ in range(len(stages) + 1)] for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    waited = torch.cuda.Event()
+    waited.record()
+    for ev in evs:
+        run(ev)
+    if waited.query():
+        log("[timing] event_stages: the device wait ended before every "
+            "stage was queued; host gaps count")
+    sync()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / reps
+            for i, (name, _) in enumerate(stages)}
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -260,16 +332,60 @@ def check_k1(scene, cam, capacity):
     n = d.cum_d.shape[0]
     ms, timed = kernel_ms(lambda: expand_instances(*args), 20,
                            ("expand", "splat_expand_instances"))
+    prof_ms, records = profiler_kernel_ms(lambda: expand_instances(*args),
+                                          20, "expand")
     plain_ms = cuda_ms(lambda: expand_instances_plain(*args), 3)
+    total = int(d.cum_d[-1])
+    lib_ms = cuda_ms(lambda: torch.repeat_interleave(
+        d.perm, d.count_d, output_size=total), 10)
     slots = capacity
     b_ms, b_by = bound(
         5 * 4 * n + 2 * 4 * slots,
         slots * (math.ceil(math.log2(max(n, 2))) + 8),
     )
     log(f"[k1] N={n} capacity={capacity} integer-equal; kernel {ms:.4f} ms "
-        f"({timed}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"by events ({timed}), {prof_ms:.4f} ms by the profiler ({records} "
+        f"records of 20 launches), plain {plain_ms:.4f} ms, "
+        f"repeat_interleave(perm, count_d) {lib_ms:.4f} ms (the gid half "
+        f"only), bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def check_k1_edges(device):
+    """K1 against its plain version where the full-width frame does not
+    go: empty gaussians between full ones (a run of 3,000 wider than a
+    block's window of staged gaussians), gaussians of 8,160 slots (a
+    screen-filling splat at 1080p), capacity above and below the total."""
+    import torch
+    from splatjax_torch.ops.expand import (
+        expand_instances, expand_instances_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    n, tiles_x, num_tiles = 20_000, 120, 8160
+    counts = torch.randint(0, 4, (n,), generator=gen)
+    counts[5000:8000] = 0
+    counts[torch.randperm(n, generator=gen)[:6]] = 8160
+    spanw = torch.randint(1, 121, (n,), generator=gen).minimum(
+        counts.clamp_min(1))
+    x0 = torch.randint(0, 40, (n,), generator=gen)
+    y0 = torch.randint(0, 40, (n,), generator=gen)
+    cum = counts.cumsum(0)
+    perm = torch.randperm(n, generator=gen)
+    ins = [t.int().to(device) for t in (x0, y0, spanw, cum, perm)]
+    total = int(cum[-1])
+    for capacity in (total + 1000, total * 2 // 3):
+        args = (*ins, capacity, tiles_x, num_tiles)
+        got = expand_instances(*args)
+        want = expand_instances_plain(*args)
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K1 differs from its plain version on the "
+                                 f"edge cases at capacity {capacity}")
+    log(f"[k1] edge cases ({n} gaussians, 3,000 empty in a row, six of "
+        f"8,160 slots; capacity {total + 1000} and {total * 2 // 3} of "
+        f"{total}): integer-equal")
 
 
 def compare_k2(out_k, out_p, what, kernel="K2", tol=K2_TOL):
@@ -739,6 +855,224 @@ def check_segreduce(b, g32, g16):
     return out
 
 
+def check_segreduce_slots(b, g32, g16):
+    """The main path's K5, K6, K7: the slot entries on the full-width
+    backward's rows in tile order (slot_pos the inverse of the tile sort),
+    against the gid-sort plain path (K6 bit-equal, K5/K7 within the run
+    tolerance) and run twice (bit-identical); kernel, plain, bound and the
+    index_add_ yardstick's times."""
+    import torch
+    from splatjax_torch.ops import segreduce as sr
+    from splatjax_torch.ops.binning import (
+        _effective_cum, _gid_order, quantize_grad_u16, tile_slot_positions,
+    )
+
+    k = g32.shape[0]
+    eff = _effective_cum(b.cum, b.count, b.perm, b.cum_d, b.count_d,
+                         b.overflow, k)
+    n = eff.shape[0]
+    order = _gid_order(b.gauss_id)
+    run_len = torch.diff(eff.long(), prepend=eff.new_zeros(1).long())
+    total = int(eff[-1])
+    slot_pos = tile_slot_positions(b.by_tile)
+    gid = b.gauss_id.long()
+    packed_u16 = quantize_grad_u16(g32)[0]
+    cases = (
+        ("segreduce_rows", sr.segment_reduce_slots_rows,
+         sr.segment_reduce_slots_rows_plain, sr.segment_reduce_rows_plain,
+         g32, g32, 64, "splat_segreduce_slots_f32"),
+        ("segreduce_u16", sr.segment_reduce_slots_packed_u16,
+         sr.segment_reduce_slots_packed_u16_plain,
+         sr.segment_reduce_packed_u16_plain, packed_u16,
+         sr.unpack_u16_pairs(packed_u16).float(), 32,
+         "splat_segreduce_slots_packed"),
+        ("segreduce_bf16", sr.segment_reduce_slots_packed_bf16,
+         sr.segment_reduce_slots_packed_bf16_plain,
+         sr.segment_reduce_packed_bf16_plain, g16,
+         sr.unpack_bf16_pairs(g16), 32, "splat_segreduce_slots_packed"),
+    )
+    out = {}
+    for name, fn, plain, gid_plain, rows, decoded, row_bytes, entry in cases:
+        args = (rows, slot_pos, b.cum_d, b.perm)
+        got, again = fn(*args), fn(*args)
+        want = gid_plain(rows.index_select(0, order), eff)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} (slots) differs between two runs")
+        if name == "segreduce_u16":
+            if not torch.equal(got, want):
+                raise AssertionError("K6 (slots) is not bit-equal to the "
+                                     "gid-sort plain path")
+            err = 0.0
+        else:
+            abs_sum = sr.segment_reduce_rows_plain(
+                decoded.abs().index_select(0, order), eff)
+            err = _check_runs(got, want, abs_sum, run_len, name + " (slots)")
+        ms, timed = kernel_ms(lambda: fn(*args), 10, ("segreduce", entry))
+        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (n, decoded.shape[1]), device=decoded.device).index_add_(
+            0, gid, decoded), 10)
+        b_ms, b_by = bound(total * (row_bytes + 4) + n * (8 + 64),
+                           total * 16)
+        log(f"[seg] {name}, slot entry (the training path): {total} rows in "
+            f"tile order onto {n} gaussians, max |err| {err:.3g} against "
+            f"the gid-sort plain path, two runs bit-identical; kernel "
+            f"{ms:.4f} ms ({timed}), plain {plain_ms:.4f} ms, index_add_ "
+            f"{lib_ms:.4f} ms (on the decoded f32 rows in tile order), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return out
+
+
+def check_long_runs(device):
+    """K5, K6, K7 on runs that the whole block sums (longer than 32 rows,
+    up to a screen-filling 8,160 tiles) and on one that K6 sums in int64
+    (70,000 rows of q = 32,767, past int32), through the direct and the
+    slot entries on the same rows: K6 bit-equal to its plain version, K5/K7
+    within the run tolerance, the two entries bit-equal to each other, two
+    runs bit-identical."""
+    import torch
+    from splatjax_torch.ops import segreduce as sr
+    from splatjax_torch.ops.rasterize_vjp import _pack_grad_bf16
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n = 4096
+    counts = torch.randint(0, 6, (n,), generator=gen)
+    longest = (33, 100, 257, 1000, 8160, 70000)
+    at = torch.randperm(n, generator=gen)[:len(longest)]
+    counts[at] = torch.tensor(longest)
+    cum = counts.cumsum(0)
+    k = int(cum[-1]) + 77                  # slots past every run
+    perm = torch.randperm(n, generator=gen)
+    slot_pos = torch.randperm(k, generator=gen)
+    u = torch.randint(1, 65536, (k, 16), generator=gen)
+    big = slot_pos[int(cum[at[-1]]) - 70000:int(cum[at[-1]])]
+    u[big] = 65535                         # that run sums 70,000 x 32,767
+    packed_u16 = ((u[:, 8:] << 16) | u[:, :8]).int()
+    f32 = torch.randn((k, 16), generator=gen)
+    rows_of = dict(segreduce_rows=f32, segreduce_u16=packed_u16,
+                   segreduce_bf16=_pack_grad_bf16(torch.randn(
+                       (k, 16), generator=gen)))
+    entries = dict(
+        segreduce_rows=(sr.segment_reduce_rows, sr.segment_reduce_rows_plain,
+                        sr.segment_reduce_slots_rows, lambda r: r),
+        segreduce_u16=(sr.segment_reduce_packed_u16,
+                       sr.segment_reduce_packed_u16_plain,
+                       sr.segment_reduce_slots_packed_u16,
+                       lambda r: sr.unpack_u16_pairs(r).float()),
+        segreduce_bf16=(sr.segment_reduce_packed_bf16,
+                        sr.segment_reduce_packed_bf16_plain,
+                        sr.segment_reduce_slots_packed_bf16,
+                        sr.unpack_bf16_pairs))
+    i32 = dict(cum_d=cum.int().to(device), perm=perm.int().to(device),
+               slot_pos=slot_pos.int().to(device))
+    errs = {}
+    for name, (direct, plain, slots, decode) in entries.items():
+        rows = rows_of[name].to(device)
+        grouped = rows.index_select(0, i32["slot_pos"].long()).contiguous()
+        d_got = direct(grouped, i32["cum_d"])
+        s_args = (rows, i32["slot_pos"], i32["cum_d"], i32["perm"])
+        s_got, s_again = slots(*s_args), slots(*s_args)
+        want = plain(grouped, i32["cum_d"])
+        sync()
+        if not torch.equal(s_got, s_again):
+            raise AssertionError(f"{name}: two runs differ on long runs")
+        if not torch.equal(s_got.index_select(0, i32["perm"].long()),
+                           d_got):
+            raise AssertionError(f"{name}: slot and direct entries differ "
+                                 "on long runs")
+        if name == "segreduce_u16":
+            if not torch.equal(d_got, want):
+                raise AssertionError("K6 on long runs is not bit-equal to "
+                                     "its plain version")
+            errs[name] = 0.0
+        else:
+            abs_sum = sr.segment_reduce_rows_plain(decode(grouped).abs(),
+                                                   i32["cum_d"])
+            errs[name] = _check_runs(d_got, want, abs_sum,
+                                     counts.to(device), name + " long runs")
+    log(f"[seg] long runs ({n} gaussians, runs of " + ", ".join(
+        str(c) for c in longest) + " rows among runs of 0-5): direct and "
+        "slot entries bit-equal, two runs bit-identical, max |err| against "
+        "plain " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def seg_stage_times(b, g32, g16):
+    """The gather transpose of the training step split into its stages by
+    CUDA events, on the full-width backward's rows: the 16-byte step (K7)
+    and the 32-byte step's default i16 gather (K6), each as the gid-sort
+    path (run ends, stable sort by gid, row index_select, the direct
+    entry) and as the slot path the step takes (the tile sort's inverse,
+    the slot entry); then the whole call the backward makes."""
+    from splatjax_torch.ops import segreduce as sr
+    from splatjax_torch.ops.binning import (
+        _effective_cum, _gid_order, quantize_grad_u16,
+        segment_sum_by_gid, segment_sum_by_gid_packed_bf16,
+        tile_slot_positions,
+    )
+
+    import torch
+
+    k = g16.shape[0]
+    runs = b.count_d.double()
+    log(f"[seg-stage] runs (instances per gaussian) over {runs.numel()} "
+        f"gaussians: mean {float(runs.mean()):.3f}, p99 "
+        f"{float(torch.quantile(runs, 0.99)):.0f}, max {int(runs.max())}; "
+        "runs longer than 8/16/32/64/128/1024: " + "/".join(
+            str(int((runs > t).sum())) for t in (8, 16, 32, 64, 128, 1024)))
+    res = (b.cum, b.count, b.perm, b.cum_d, b.count_d, b.overflow)
+    eff = ("eff_cum", lambda r: _effective_cum(*res, k))
+    sort = ("gid sort", lambda r: _gid_order(b.gauss_id))
+    slot = ("slot_pos", lambda r: tile_slot_positions(b.by_tile))
+    quant = ("quantize", lambda r: quantize_grad_u16(g32)[0])
+    paths = {
+        "16-byte step (K7), gid-sort path": [
+            eff, sort,
+            ("row index_select",
+             lambda r: g16.index_select(0, r["gid sort"])),
+            ("K7", lambda r: sr.segment_reduce_packed_bf16(
+                r["row index_select"], r["eff_cum"]))],
+        "32-byte step, i16 gather (K6), gid-sort path": [
+            eff, quant, sort,
+            ("row index_select",
+             lambda r: r["quantize"].index_select(0, r["gid sort"])),
+            ("K6", lambda r: sr.segment_reduce_packed_u16(
+                r["row index_select"], r["eff_cum"]))],
+        "16-byte step (K7), slot path": [
+            slot, ("K7", lambda r: sr.segment_reduce_slots_packed_bf16(
+                g16, r["slot_pos"], b.cum_d, b.perm))],
+        "32-byte step, i16 gather (K6), slot path": [
+            slot, quant, ("K6", lambda r: sr.segment_reduce_slots_packed_u16(
+                r["quantize"], r["slot_pos"], b.cum_d, b.perm))],
+        "whole calls as the backward makes them": [
+            ("segment_sum_by_gid_packed_bf16 (16-byte)",
+             lambda r: segment_sum_by_gid_packed_bf16(
+                 g16, b.gauss_id, *res, by_tile=b.by_tile)),
+            ("segment_sum_by_gid (i16)",
+             lambda r: segment_sum_by_gid(g32, b.gauss_id, *res,
+                                          by_tile=b.by_tile))],
+    }
+    out = {}
+    prev = os.environ.get("SPLATJAX_GRAD_GATHER")
+    os.environ["SPLATJAX_GRAD_GATHER"] = "i16"
+    try:
+        times = {what: event_stages(stages) for what, stages in paths.items()}
+    finally:
+        if prev is None:
+            del os.environ["SPLATJAX_GRAD_GATHER"]
+        else:
+            os.environ["SPLATJAX_GRAD_GATHER"] = prev
+    for what, t in times.items():
+        log(f"[seg-stage] {what}: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in t.items())
+            + f"; sum {sum(t.values()):.4f} ms")
+        out[what] = t
+    return out
+
+
 def parity_gate(gate_scene, gate_cam):
     from splatjax_torch.reference import render_reference
     from splatjax_torch.render import render
@@ -868,7 +1202,7 @@ def train_stage_times(params, cam, target, capacity, cfg):
     ev[6].record()
     seg = segment_sum_by_gid_packed_bf16(g_rows, b.gauss_id, b.cum, b.count,
                                          b.perm, b.cum_d, b.count_d,
-                                         b.overflow)
+                                         b.overflow, by_tile=b.by_tile)
     ev[7].record()
     feat_n.backward(seg)
     ev[8].record()
@@ -876,7 +1210,7 @@ def train_stage_times(params, cam, target, capacity, cfg):
     ev[9].record()
     sync()
     names = ("project", "bin", "pack16+gather", "K2 forward",
-             "assemble+loss fwd/bwd", "K4", "sort+gather+K7",
+             "assemble+loss fwd/bwd", "K4", "gather transpose (slot_pos+K7)",
              "autograd through projection", "Adam")
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
@@ -904,13 +1238,17 @@ def profile_calls(fn, calls: int = 5):
     launches = sum(e.count for e in kern) / calls
     top = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
            for e in kern[:14]]
-    return busy_ms, launches, top
+    kinds = {kind: sum(e.count for e in kern if any(p in e.key
+                                                     for p in pats)) / calls
+             for kind, pats in KERNEL_KINDS.items()}
+    return busy_ms, launches, top, kinds
 
 
-def log_profile(tag, busy_ms, n_kernels, top, median_ms):
+def log_profile(tag, busy_ms, n_kernels, top, kinds, median_ms):
     log(f"[{tag}] device busy {busy_ms:.3f} ms per call over "
         f"{n_kernels:.0f} kernels, idle share "
-        f"{max(0.0, 1.0 - busy_ms / median_ms):.3f} of the median")
+        f"{max(0.0, 1.0 - busy_ms / median_ms):.3f} of the median; per "
+        "call " + ", ".join(f"{v:.0f} {k}" for k, v in kinds.items()))
     for name, ms, calls in top:
         log(f"[{tag}]   {ms:8.4f} ms  x{calls:<3d} {name[:90]}")
 
@@ -1181,6 +1519,7 @@ def main() -> int:
         f"{capacity} ({time.perf_counter() - t0:.1f} s)")
 
     k1 = check_k1(scene, cam, capacity)
+    check_k1_edges(scene.device)
     k2_err = check_k2_small(gate_scene, gate_cam, False)
     k2 = check_k2_full(scene, cam, capacity, False)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_err)
@@ -1192,7 +1531,14 @@ def main() -> int:
     k4, _, g16 = check_k4_full(scene, cam, capacity, True)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_32["max_abs_err"],
                             k4_err)
-    seg = check_segreduce(b_full, g32, g16)
+    seg_direct = check_segreduce(b_full, g32, g16)
+    seg = check_segreduce_slots(b_full, g32, g16)
+    seg_long = check_long_runs(g32.device)
+    for name, row in seg.items():
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 seg_direct[name]["max_abs_err"],
+                                 seg_long[name])
+    seg_stage_times(b_full, g32, g16)
     del g32, g16, b_full
     tail_diagnostics(scene, cam, capacity)
     parity_gate(gate_scene, gate_cam)
@@ -1283,7 +1629,7 @@ def main() -> int:
         dict(name="expand_instances", route="cuda",
              source=csrc + "expand.cu",
              replaces="splatjax/ops/expand.py:95",
-             launches=total["expand"], library_ms=None, **k1),
+             launches=total["expand"], **k1),
         dict(name="rasterize_fwd", route="cuda",
              source=csrc + "rasterize_fwd.cu",
              replaces="splatjax/ops/rasterize.py:678",

@@ -16,8 +16,11 @@ Capacity truncation drops the depth-farthest instances. The whole path
 stays on the device: ``num_instances`` and ``overflow`` are 0-d tensors.
 
 The transpose of the per-instance row gather (the backward's path back to
-gaussians) is :func:`segment_sum_by_gid`: a stable sort by gid, a row
-gather, and per-gaussian run sums (K5/K6/K7, :mod:`.segreduce`).
+gaussians) is :func:`segment_sum_by_gid`: per-gaussian sums of the rows
+(K5/K6/K7, :mod:`.segreduce`). On CUDA tensors the kernel reads each
+gaussian's rows through the inverse of the tile sort
+(``BinnedInstances.by_tile``, :func:`tile_slot_positions`); on CPU tensors
+it stays splatjax's path: a stable sort by gid, a row gather and run sums.
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ from splatjax_torch.ops.segreduce import (
     segment_reduce_packed_bf16,
     segment_reduce_packed_u16,
     segment_reduce_rows,
+    segment_reduce_slots_packed_bf16,
+    segment_reduce_slots_packed_u16,
+    segment_reduce_slots_rows,
 )
 
 
@@ -91,7 +97,10 @@ class BinnedInstances(NamedTuple):
     residuals (cum/count/perm/cum_d/count_d, int32) are what the backward's
     segment sum will consume. ``order`` is the rasterizer kernels' block
     order over the tiles (:func:`tile_order` of ``ends - starts``), built
-    here once per binning and used by K2, K3 and K4 on these bounds."""
+    here once per binning and used by K2, K3 and K4 on these bounds.
+    ``by_tile`` is the tile sort's permutation (tile-order position i holds
+    expansion slot ``by_tile[i]``), a port-only field: the gather
+    transpose on CUDA reads rows through its inverse."""
 
     gauss_id: torch.Tensor       # (K_cap,) int32 source gaussian
     tile_id: torch.Tensor        # (K_cap,) int32; num_tiles = sentinel
@@ -105,6 +114,7 @@ class BinnedInstances(NamedTuple):
     perm: Optional[torch.Tensor] = None     # (N,) depth-compact order
     cum_d: Optional[torch.Tensor] = None    # (N,) cumsum in depth order
     count_d: Optional[torch.Tensor] = None  # (N,) counts in depth order
+    by_tile: Optional[torch.Tensor] = None  # (K_cap,) int64 tile sort perm
 
 
 def features_from_projection(proj: ProjectedGaussians) -> torch.Tensor:
@@ -145,6 +155,16 @@ def _gid_order(gid: torch.Tensor) -> torch.Tensor:
     return torch.sort(gid, stable=True).indices
 
 
+def tile_slot_positions(by_tile: torch.Tensor) -> torch.Tensor:
+    """The inverse of the tile sort's permutation, (K,) int32: expansion
+    slot s sits at tile-order row ``slot_pos[s]``. One scatter."""
+    k = by_tile.shape[0]
+    return torch.empty((k,), dtype=torch.int32,
+                       device=by_tile.device).scatter_(
+        0, by_tile, torch.arange(k, dtype=torch.int32,
+                                 device=by_tile.device))
+
+
 def quantize_grad_u16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(K, 16) f32 rows -> ((K, 8) int32 biased-u16 pairs, (16,) scale):
     q = round(g / scale) with scale = channel max / 32767, lane c holding
@@ -157,36 +177,81 @@ def quantize_grad_u16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (u[:, 8:] << 16) | u[:, :8], scale
 
 
+def _gather_rows_mode(g: torch.Tensor, mode: str) -> torch.Tensor:
+    """The f32 rows K5 sums under ``mode``: rounded to bf16 for "i16" (at
+    C != 16) and "bf16", as they are for splatjax's packed gather."""
+    if mode in ("i16", "bf16") and g.shape[1] % 2 == 0:
+        return g.to(torch.bfloat16).float()
+    return g
+
+
+def _slot_pos(by_tile: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    if by_tile is None:
+        raise ValueError("on CUDA tensors the gather transpose reads rows "
+                         "through the tile sort's inverse: pass by_tile "
+                         "(BinnedInstances.by_tile)")
+    if tuple(by_tile.shape) != (k,):
+        raise ValueError(f"by_tile must be ({k},), got "
+                         f"{tuple(by_tile.shape)}")
+    return tile_slot_positions(by_tile)
+
+
+def _segment_sum_slots(g: torch.Tensor, slot_pos: torch.Tensor, cum_d,
+                       perm) -> torch.Tensor:
+    """:func:`segment_sum_by_gid` through the tile sort's inverse: the
+    mode's quantization or rounding in tile order, then K6 or K5 on the
+    slots (their plain versions on CPU tensors)."""
+    mode = _grad_gather_mode()
+    if mode == "i16" and g.shape[1] == 16:
+        packed, scale = quantize_grad_u16(g)
+        return segment_reduce_slots_packed_u16(packed, slot_pos, cum_d,
+                                               perm) * scale
+    return segment_reduce_slots_rows(_gather_rows_mode(g, mode).contiguous(),
+                                     slot_pos, cum_d, perm)
+
+
 def segment_sum_by_gid(g: torch.Tensor, gid: torch.Tensor, cum, count,
-                       perm, cum_d, count_d, overflow) -> torch.Tensor:
-    """Transpose of the per-instance row gather: (K, C) f32 instance-major
-    gradient rows -> (N, C) per-gaussian sums. Sort by gid, gather the rows
-    into per-gaussian runs, sum each run (K6 for the default "i16" mode at
-    C == 16, else K5). Instances past the capacity cut carry gid N-1 and
-    zero rows; they sort after gaussian N-1's run and enter no sum."""
+                       perm, cum_d, count_d, overflow,
+                       by_tile: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Transpose of the per-instance row gather: (K, C) f32 tile-order
+    gradient rows -> (N, C) per-gaussian sums (K6 for the default "i16"
+    mode at C == 16, else K5).
+
+    CUDA tensors: the kernel reads gaussian g's rows through the inverse of
+    the tile sort (``by_tile``, required) in slot order, the order a stable
+    sort by gid gives them, so no sort and no row copy. CPU tensors:
+    splatjax's path, a stable sort by gid, the row gather and run sums
+    (instances past the capacity cut carry gid N-1 and zero rows; they sort
+    after gaussian N-1's run and enter no sum); ``by_tile`` is not used."""
     k, c = g.shape
+    if g.device.type != "cpu":
+        return _segment_sum_slots(g, _slot_pos(by_tile, k), cum_d, perm)
+    mode = _grad_gather_mode()
     eff_cum = _effective_cum(cum, count, perm, cum_d, count_d, overflow, k)
     order = _gid_order(gid)
-    mode = _grad_gather_mode()
     if mode == "i16" and c == 16:
         packed, scale = quantize_grad_u16(g)
         sums = segment_reduce_packed_u16(packed.index_select(0, order),
                                          eff_cum)
         return sums * scale
-    if mode in ("i16", "bf16") and c % 2 == 0:
-        rows = g.to(torch.bfloat16).index_select(0, order).float()
-    else:
-        rows = g.index_select(0, order)
-    return segment_reduce_rows(rows, eff_cum)
+    return segment_reduce_rows(
+        _gather_rows_mode(g, mode).index_select(0, order), eff_cum)
 
 
 def segment_sum_by_gid_packed_bf16(gp: torch.Tensor, gid: torch.Tensor, cum,
-                                   count, perm, cum_d, count_d, overflow
+                                   count, perm, cum_d, count_d, overflow,
+                                   by_tile: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """Transpose of the gather for the 16-byte backward's rows: (K, 8)
     int32 bf16 pairs as K4 writes them (channel c low, c + 8 high) ->
-    (N, 16) f32 per-gaussian sums (K7)."""
+    (N, 16) f32 per-gaussian sums (K7). CUDA tensors read through
+    ``by_tile``'s inverse, CPU tensors sort by gid, as
+    :func:`segment_sum_by_gid`."""
     k = gp.shape[0]
+    if gp.device.type != "cpu":
+        return segment_reduce_slots_packed_bf16(
+            gp, _slot_pos(by_tile, k), cum_d, perm)
     eff_cum = _effective_cum(cum, count, perm, cum_d, count_d, overflow, k)
     return segment_reduce_packed_bf16(gp.index_select(0, _gid_order(gid)),
                                       eff_cum)
@@ -287,6 +352,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
             order=torch.arange(cfg.num_tiles, dtype=i32, device=dev),
             num_instances=zero,
             overflow=zero,
+            by_tile=torch.arange(capacity, device=dev),
         )
 
     d = depth_order(proj, cfg)
@@ -323,4 +389,5 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
         perm=d.perm,
         cum_d=d.cum_d,
         count_d=d.count_d,
+        by_tile=by_tile,
     )

@@ -282,14 +282,15 @@ def image_cotangent_to_tiles(gimg: torch.Tensor, cfg: TileConfig,
 
 def _grad_rows_to_gaussians(g_rows, b: BinnedInstances):
     """Gather transpose on K4's output form: bf16 pairs (16-byte rows) go
-    to K7, f32 rows to :func:`segment_sum_by_gid`. Returns (N, 16)."""
-    gid, cum, count, perm, cum_d, count_d, overflow = (
-        b.gauss_id, b.cum, b.count, b.perm, b.cum_d, b.count_d, b.overflow)
+    to K7, f32 rows to :func:`segment_sum_by_gid`; on CUDA both read the
+    rows through the tile sort's inverse (``b.by_tile``). Returns
+    (N, 16)."""
+    res = (b.gauss_id, b.cum, b.count, b.perm, b.cum_d, b.count_d,
+           b.overflow)
     if g_rows.dtype == torch.int32:
-        return segment_sum_by_gid_packed_bf16(g_rows, gid, cum, count, perm,
-                                              cum_d, count_d, overflow)
-    return segment_sum_by_gid(g_rows, gid, cum, count, perm, cum_d,
-                              count_d, overflow)
+        return segment_sum_by_gid_packed_bf16(g_rows, *res,
+                                              by_tile=b.by_tile)
+    return segment_sum_by_gid(g_rows, *res, by_tile=b.by_tile)
 
 
 def _gathered_rows(feat_n, gid, packed16):

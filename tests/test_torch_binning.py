@@ -92,6 +92,7 @@ def test_bin_gaussians_empty_scene():
         np.testing.assert_array_equal(getattr(bt, name).numpy(),
                                       np.asarray(getattr(bj, name)))
     assert bt.order.tolist() == list(range(TileConfig(32, 32).num_tiles))
+    assert bt.by_tile.tolist() == list(range(1024))
 
 
 def test_bin_gaussians_tile_order(projected):
