@@ -8,8 +8,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      started together);
   2. K1 (expansion) against its plain version on the full-width frame and
      on edge cases (a long row of empty gaussians, screen-filling ones,
-     capacity above and below the total): integer-equal; its time by CUDA
-     events and by the profiler, and ``repeat_interleave``'s beside it;
+     capacity above and below the total, a long tail of gaussians at
+     cum_d == capacity, and cumsums past 2^31 saturated at 2^31 - 1):
+     integer-equal; its time by CUDA events and by the profiler, and
+     ``repeat_interleave``'s beside it;
   3. K2 (forward rasterize), 32-byte and 16-byte rows, against its plain
      version: <= 1e-4 on r, g, b, T and depth, chunks_done equal, on 64
      sampled tiles of the full-width frame and on every tile of 192x128
@@ -61,14 +63,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         defaults (16-byte rows; K1, K2, K4, K7); the loss must fall;
      c. one 32-byte gradient step (K6), and one under
         SPLATJAX_GRAD_GATHER=f32 (K5);
-     e. the stale-order redraw: ``SplatRenderer(feature_bytes=16,
+     d. the stale-order redraw: ``SplatRenderer(feature_bytes=16,
         resort_interval=8)`` over splatjax bench.py's orbit (eyes
         (0.02 sin t, 0.02 cos t, 2.8), 8 t over [0, 2 pi)), two laps = 16
         frames: 16 K3 launches, 2 K1 (one per rebuilt index), no K2;
-     f. the same renderer with 32-byte rows, 8 frames at the unchanged
+     e. the same renderer with 32-byte rows, 8 frames at the unchanged
         camera: K2 and no K3, within 1e-4 of ``render()``;
-     capacity = the measured demand of both scenes + 3% (paths a-c) and of
-     the base eye and the orbit + 3% (e, f), overflow == 0;
+     f. assets: the 1M-splat scene written by ``save_ply`` and as .splat
+        under ``build/``; the .ply loaded by the native converter and by
+        NumPy (means, quaternions, colors bit-equal, scales and opacities
+        within 4 ulps, rows ordered apart only at importance near-ties);
+        3 frames of ``SplatRenderer(src="file://.../scene.ply",
+        progress=cb)`` bit-equal to ``render()`` of the NumPy-loaded scene,
+        ``cb`` seeing one done event at the file's size; the .splat through
+        ``SplatRenderer.from_stream(stream_chunks(...))`` equal to
+        ``load_splat``'s scene; host load times (K1, K2);
+     g. densify + checkpoint: ``fit()`` 8 steps from a fresh noisy start
+        with ``DensifyConfig(every=3)`` (passes after steps 2 and 5; the
+        gradient threshold the 90th percentile of a probe step's mean
+        gradients), ``checkpoint_every=3``: twice uninterrupted (A, B),
+        once resumed from A's step-3 checkpoint; the first pass must clone
+        or split and grow the rows; the resumed run bit-identical to A if
+        A and B are, else no further from A than B; ``export_ply`` bytes
+        equal to ``save_ply`` of A's scene; the pass alone at 1M timed,
+        device busy per step before and after the growth (K1, K2 16-byte,
+        K4, K7);
+     capacity = the measured demand of both scenes + 3% (paths a-c), of
+     the base eye and the orbit + 3% (d, e), of the loaded scene + 3% (f),
+     ``default_capacity`` of the row count (g); overflow == 0;
      frame, step, stage and kernel times, device busy time and idle share,
      radix-sort and row-gather kernels per call.
 Then one line with the card's name and power limit, one JSON line with the
@@ -87,6 +109,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -126,6 +149,8 @@ ORBIT = [(0.02 * math.sin(t), 0.02 * math.cos(t), 2.8)
 REDRAW_LAPS = 2
 QUEUE_CYCLES = 20_000_000  # device wait (~10 ms) that kernel_ms queues behind
 RESORT_INTERVAL = 8
+ASSET_FRAMES = 3       # frames of SplatRenderer(src=.ply) in the asset path
+DENSE_STEPS = 8        # fit() steps of the densify + checkpoint path
 LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
 # kernels counted by kind in the profiles: a sort's radix passes, and the
 # row gathers of index_select
@@ -356,8 +381,12 @@ def check_k1_edges(device):
     """K1 against its plain version where the full-width frame does not
     go: empty gaussians between full ones (a run of 3,000 wider than a
     block's window of staged gaussians), gaussians of 8,160 slots (a
-    screen-filling splat at 1080p), capacity above and below the total."""
+    screen-filling splat at 1080p), capacity above and below the total,
+    and saturated cumsums: a long tail of gaussians at cum_d == capacity,
+    and a count sum past 2^31 saturated at 2^31 - 1 as ``bin_gaussians``
+    leaves it (a gaussian of 2^31 instances)."""
     import torch
+    from splatjax_torch.ops.binning import CUM_MAX
     from splatjax_torch.ops.expand import (
         expand_instances, expand_instances_plain,
     )
@@ -373,19 +402,31 @@ def check_k1_edges(device):
     y0 = torch.randint(0, 40, (n,), generator=gen)
     cum = counts.cumsum(0)
     perm = torch.randperm(n, generator=gen)
-    ins = [t.int().to(device) for t in (x0, y0, spanw, cum, perm)]
     total = int(cum[-1])
-    for capacity in (total + 1000, total * 2 // 3):
+    cut = total * 2 // 3
+    huge = counts.clone()
+    huge[n // 2] = 2 ** 31
+    cases = (
+        ("capacity above the total", cum, total + 1000),
+        ("capacity below the total", cum, cut),
+        ("cum_d saturated at the capacity", cum.clamp(max=cut), cut),
+        ("cum_d saturated at 2^31 - 1", huge.cumsum(0).clamp(max=CUM_MAX),
+         int(huge[: n // 2].sum()) + 5000),
+    )
+    for what, c, capacity in cases:
+        ins = [t.int().to(device) for t in (x0, y0, spanw, c, perm)]
         args = (*ins, capacity, tiles_x, num_tiles)
         got = expand_instances(*args)
         want = expand_instances_plain(*args)
         sync()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"K1 differs from its plain version on the "
-                                 f"edge cases at capacity {capacity}")
+                                 f"edge case: {what} ({capacity})")
+        tail = int((c >= capacity).sum())
+        log(f"[k1] edge case {what}: capacity {capacity}, {tail} gaussians "
+            f"at or past it; integer-equal")
     log(f"[k1] edge cases ({n} gaussians, 3,000 empty in a row, six of "
-        f"8,160 slots; capacity {total + 1000} and {total * 2 // 3} of "
-        f"{total}): integer-equal")
+        f"8,160 slots, total {total}): integer-equal")
 
 
 def compare_k2(out_k, out_p, what, kernel="K2", tol=K2_TOL):
@@ -878,16 +919,17 @@ def check_segreduce_slots(b, g32, g16):
     gid = b.gauss_id.long()
     packed_u16 = quantize_grad_u16(g32)[0]
     cases = (
-        ("segreduce_rows", sr.segment_reduce_slots_rows,
-         sr.segment_reduce_slots_rows_plain, sr.segment_reduce_rows_plain,
-         g32, g32, 64, "splat_segreduce_slots_f32"),
-        ("segreduce_u16", sr.segment_reduce_slots_packed_u16,
-         sr.segment_reduce_slots_packed_u16_plain,
+        ("segreduce_rows", sr._segment_reduce_slots_rows,
+         sr._segment_reduce_slots_rows_plain,
+         sr.segment_reduce_rows_plain, g32, g32, 64,
+         "splat_segreduce_slots_f32"),
+        ("segreduce_u16", sr._segment_reduce_slots_packed_u16,
+         sr._segment_reduce_slots_packed_u16_plain,
          sr.segment_reduce_packed_u16_plain, packed_u16,
          sr.unpack_u16_pairs(packed_u16).float(), 32,
          "splat_segreduce_slots_packed"),
-        ("segreduce_bf16", sr.segment_reduce_slots_packed_bf16,
-         sr.segment_reduce_slots_packed_bf16_plain,
+        ("segreduce_bf16", sr._segment_reduce_slots_packed_bf16,
+         sr._segment_reduce_slots_packed_bf16_plain,
          sr.segment_reduce_packed_bf16_plain, g16,
          sr.unpack_bf16_pairs(g16), 32, "splat_segreduce_slots_packed"),
     )
@@ -957,14 +999,14 @@ def check_long_runs(device):
                        (k, 16), generator=gen)))
     entries = dict(
         segreduce_rows=(sr.segment_reduce_rows, sr.segment_reduce_rows_plain,
-                        sr.segment_reduce_slots_rows, lambda r: r),
+                        sr._segment_reduce_slots_rows, lambda r: r),
         segreduce_u16=(sr.segment_reduce_packed_u16,
                        sr.segment_reduce_packed_u16_plain,
-                       sr.segment_reduce_slots_packed_u16,
+                       sr._segment_reduce_slots_packed_u16,
                        lambda r: sr.unpack_u16_pairs(r).float()),
         segreduce_bf16=(sr.segment_reduce_packed_bf16,
                         sr.segment_reduce_packed_bf16_plain,
-                        sr.segment_reduce_slots_packed_bf16,
+                        sr._segment_reduce_slots_packed_bf16,
                         sr.unpack_bf16_pairs))
     i32 = dict(cum_d=cum.int().to(device), perm=perm.int().to(device),
                slot_pos=slot_pos.int().to(device))
@@ -1042,10 +1084,11 @@ def seg_stage_times(b, g32, g16):
             ("K6", lambda r: sr.segment_reduce_packed_u16(
                 r["row index_select"], r["eff_cum"]))],
         "16-byte step (K7), slot path": [
-            slot, ("K7", lambda r: sr.segment_reduce_slots_packed_bf16(
+            slot, ("K7", lambda r: sr._segment_reduce_slots_packed_bf16(
                 g16, r["slot_pos"], b.cum_d, b.perm))],
         "32-byte step, i16 gather (K6), slot path": [
-            slot, quant, ("K6", lambda r: sr.segment_reduce_slots_packed_u16(
+            slot, quant,
+            ("K6", lambda r: sr._segment_reduce_slots_packed_u16(
                 r["quantize"], r["slot_pos"], b.cum_d, b.perm))],
         "whole calls as the backward makes them": [
             ("segment_sum_by_gid_packed_bf16 (16-byte)",
@@ -1474,6 +1517,344 @@ def redraw32_path(scene, cam, capacity):
     return launches
 
 
+def _scene_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("means", "scales", "quats", "colors", "opacities"))
+
+
+def check_native_ply(nat, ref):
+    """The native .ply converter against the NumPy parser (the semantics of
+    record): means, quaternions and colors bit-equal and scales and
+    opacities within 4 f32 ulps on every row the two importance orders
+    share; a row they order apart must be a near-tie (importances within
+    a relative 1e-6). Returns (rows ordered apart, max ulps)."""
+    import numpy as np
+
+    def host(scene):
+        return {f: getattr(scene, f).cpu().numpy() for f in
+                ("means", "scales", "quats", "colors", "opacities")}
+
+    a, b = host(nat), host(ref)
+    same = (a["means"] == b["means"]).all(axis=-1)
+    imp_a = a["scales"].prod(axis=-1) * a["opacities"]
+    imp_b = b["scales"].prod(axis=-1) * b["opacities"]
+    moved = ~same
+    if moved.any() and not np.allclose(imp_a[moved], imp_b[moved],
+                                       rtol=1e-6, atol=0.0):
+        raise AssertionError("native .ply order differs beyond near-ties")
+    for f in ("quats", "colors"):
+        if not np.array_equal(a[f][same], b[f][same]):
+            raise AssertionError(f"native .ply {f} differ from NumPy's")
+    ulps = 0
+    for f in ("scales", "opacities"):
+        d = np.abs(a[f][same].view(np.int32).astype(np.int64)
+                   - b[f][same].view(np.int32).astype(np.int64))
+        ulps = max(ulps, int(d.max()) if d.size else 0)
+    if ulps > 4:
+        raise AssertionError(f"native .ply scales/opacities {ulps} ulps "
+                             "from NumPy's")
+    return int(moved.sum()), ulps
+
+
+def asset_path(scene, cam, smi, workdir):
+    """Path f: the 1M-splat scene written as .ply (``save_ply``) and
+    .splat, the .ply loaded by the native converter and by NumPy, served
+    through ``SplatRenderer(src="file://...scene.ply", progress=cb)`` and
+    the .splat streamed through ``SplatRenderer.from_stream``. Returns the
+    launches."""
+    import torch
+    from splatjax_torch import SplatRenderer, kernels
+    from splatjax_torch.io import load_ply, load_splat, save_ply, save_splat
+    from splatjax_torch.io.stream import stream_chunks
+    from splatjax_torch.render import render
+
+    ply = os.path.join(workdir, "scene.ply")
+    splat = os.path.join(workdir, "scene.splat")
+    t0 = time.perf_counter()
+    save_ply(ply, scene)
+    save_splat(splat, scene)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(ply)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    from splatjax_torch.io import native
+
+    _, build_s = timed(native.ensure_built)   # g++, once per checkout
+    ref, numpy_s = timed(lambda: load_ply(ply, backend="numpy"))
+    nat, native_s = timed(lambda: load_ply(ply, backend="native"))
+    moved, ulps = check_native_ply(nat, ref)
+    events = []
+    capacity = -(-int(demand(ref, cam) * 1.03) // 1024) * 1024
+    want = render(ref, cam, capacity=capacity)
+    # the counted window: the renderer built from the .ply and its frames
+    sync()
+    kernels.reset_launches()
+    renderer, src_s = timed(lambda: SplatRenderer(
+        src="file://" + ply, progress=events.append, capacity=capacity))
+    for _ in range(ASSET_FRAMES):
+        img = renderer.render(cam)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    done = [e for e in events if e.done]
+    if len(done) != 1 or done[0].bytes_read != size:
+        raise AssertionError(f"progress: done events {done}, file {size} B")
+    if not _scene_equal(renderer.scene, ref):
+        raise AssertionError("SplatRenderer(src=.ply) scene differs from "
+                             "load_ply's")
+    if renderer.capacity != capacity or not torch.equal(img, want):
+        raise AssertionError("SplatRenderer(src=.ply) frame differs from "
+                             "render() of the NumPy-loaded scene")
+    mean_alpha = check_frame(img, "asset path")
+    streamed, stream_s = timed(lambda: SplatRenderer.from_stream(
+        stream_chunks(splat)))
+    streamed._materialize()
+    if not _scene_equal(streamed.scene, load_splat(splat,
+                                                   backend="numpy")):
+        raise AssertionError("from_stream scene differs from load_splat's")
+    log(f"[asset] {scene.num_gaussians} splats: .ply {size} B, .splat "
+        f"{os.path.getsize(splat)} B, written in {write_s:.3f} s; host "
+        f"load of the .ply: native {native_s:.4f} s (its g++ build before "
+        f"it {build_s:.3f} s), NumPy {numpy_s:.4f} s; "
+        f"SplatRenderer(src=file://.ply) {src_s:.4f} s; streamed .splat "
+        f"(from_stream) {stream_s:.4f} s; {smi}")
+    log(f"[asset] native vs NumPy: {moved} rows ordered apart (near-ties), "
+        f"scales/opacities within {ulps} ulps, the rest bit-equal; "
+        f"{ASSET_FRAMES} frames bit-equal to render(), mean alpha "
+        f"{mean_alpha:.4f}; progress events {len(events)}, done at "
+        f"{done[0].bytes_read} B; launches of the renderer's build and "
+        f"frames {launches}")
+    return launches
+
+
+def densify_path(start, cam, target, workdir):
+    """Path g: ``fit()`` with densify and checkpoints from the noisy 1M
+    start, twice uninterrupted and once resumed from step 3's checkpoint;
+    ``export_ply`` of the result; K1, K4 and K7 against their plain
+    versions on the grown bucket. Returns the launches and the kernels'
+    errors there."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.io import save_ply
+    from splatjax_torch.render import default_capacity
+    from splatjax_torch.scene import TrainableGaussians
+    from splatjax_torch.train import (
+        CheckpointManager, DensifyConfig, FitConfig, densify_and_prune,
+        export_ply, fit, make_train_step,
+    )
+    from splatjax_torch.train.fit import _optimizer
+
+    def fresh():
+        return TrainableGaussians(**{
+            k: None if getattr(start, k) is None
+            else getattr(start, k).detach().clone()
+            for k in TrainableGaussians.LEAVES})
+
+    cfg = FitConfig(steps=DENSE_STEPS, log_every=1)
+    # the gradient threshold: the 90th percentile of one step's mean
+    # gradients, so about a tenth of the gaussians clone or split
+    probe = fresh()
+    step = make_train_step([cam], cfg, default_capacity(probe.num_gaussians))
+    popt = _optimizer(probe, cfg)
+    _, _, gnorm = step(probe, popt, cam.modelview, cam.projection, target)
+    threshold = float(torch.quantile(gnorm[gnorm > 0].float(), 0.9))
+    dense = DensifyConfig(start=0, stop=DENSE_STEPS, every=3,
+                          grad_threshold=threshold)
+    # the densify pass alone at 1M, on the probe's gradients and moments
+    n0 = probe.num_gaussians
+    sync()
+    t0 = time.perf_counter()
+    _, _, _, rep0 = densify_and_prune(
+        probe, popt, gnorm.double().cpu().numpy(), np.ones((n0,), np.int64),
+        np.ones((n0,), bool), dense, np.random.default_rng(0))
+    sync()
+    pass_s = time.perf_counter() - t0
+    del probe, popt, step
+
+    sync()
+    kernels.reset_launches()
+    runs, reports, hists = {}, {}, {}
+    for name in ("A", "B"):
+        events = []
+        t0 = time.perf_counter()
+        runs[name], hists[name] = fit(
+            fresh(), [cam], [target], cfg,
+            checkpoint_dir=os.path.join(workdir, name), checkpoint_every=3,
+            densify=dense, densify_seed=1, log_fn=events.append)
+        sync()
+        log(f"[densify] run {name}: {DENSE_STEPS} steps in "
+            f"{time.perf_counter() - t0:.3f} s")
+        reports[name] = [e for e in events if "densify" in e]
+    ck = os.path.join(workdir, "resume")
+    os.makedirs(ck)
+    shutil.copy(os.path.join(workdir, "A", "step_3.pt"), ck)
+    if CheckpointManager(ck).latest_step() != 3:
+        raise AssertionError("step 3's checkpoint is missing")
+    resumed, rhist = fit(fresh(), [cam], [target], cfg, checkpoint_dir=ck,
+                         checkpoint_every=3, resume=True, densify=dense,
+                         densify_seed=1)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+
+    first = reports["A"][0]["densify"]
+    if first["cloned"] + first["split"] <= 0 or first["capacity"] <= n0:
+        raise AssertionError(f"the first densify pass grew nothing: {first}")
+    a, b = runs["A"], runs["B"]
+    losses = [h["loss"] for h in hists["A"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            [h["step"] for h in rhist] != list(range(3, DENSE_STEPS)):
+        raise AssertionError(f"densify run: losses {losses}, resumed steps "
+                             f"{[h['step'] for h in rhist]}")
+    leaves = [k for k in TrainableGaussians.LEAVES
+              if getattr(a, k) is not None]
+
+    def spread(x, y):
+        if x.num_gaussians != y.num_gaussians:
+            return math.inf
+        return max(float((getattr(x, k) - getattr(y, k)).detach().abs()
+                         .max()) for k in leaves)
+
+    ab, ra = spread(a, b), spread(resumed, a)
+    identical = ab == 0.0
+    if ra == math.inf:
+        raise AssertionError(f"resumed run has {resumed.num_gaussians} "
+                             f"rows, run A {a.num_gaussians}")
+    if identical and ra != 0.0:
+        raise AssertionError(f"two runs are bit-identical but the resumed "
+                             f"one differs by {ra}")
+    if not identical and not ra <= ab:
+        raise AssertionError(f"resumed run differs from run A by {ra}, "
+                             f"more than run B does ({ab})")
+    grown = check_grown(a, cam)
+    with torch.no_grad():
+        final = a.to_scene()
+    export_ply(os.path.join(workdir, "export.ply"), a)
+    save_ply(os.path.join(workdir, "save.ply"), final)
+    with open(os.path.join(workdir, "export.ply"), "rb") as f, \
+            open(os.path.join(workdir, "save.ply"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("export_ply bytes differ from save_ply's")
+
+    ends = [h["elapsed_s"] * 1e3 for h in hists["A"]]
+    step_ms = [y - x for x, y in zip([0.0] + ends[:-1], ends)]
+    log(f"[densify] threshold {threshold:.4g} (90th percentile of a step's "
+        f"mean gradients); the pass alone at {n0} splats: {pass_s:.4f} s "
+        f"({rep0})")
+    log(f"[densify] run A passes: "
+        f"{[(e['step'], e['densify']) for e in reports['A']]}")
+    log(f"[densify] step ms of run A (a pass falls in the record of the "
+        f"step it follows, {[e['step'] for e in reports['A']]}, a checkpoint "
+        f"write in the next one): {', '.join(f'{t:.3f}' for t in step_ms)}"
+        f"; loss "
+        f"{' -> '.join(f'{x:.5f}' for x in losses)}")
+    log(f"[densify] runs A and B {'bit-identical' if identical else 'differ'}"
+        f" (max |A - B| {ab:.3g}); resumed from step 3 vs A: max "
+        f"{ra:.3g}; reports A == B: {reports['A'] == reports['B']}; "
+        f"export_ply == save_ply bytes; launches {launches}")
+    # device busy per step at the start's row count and the grown one
+    # and the host median of 5 such steps (run A's records also hold the
+    # passes and the checkpoint writes)
+    for name, params in (("before", fresh()), ("after", a)):
+        n = params.num_gaussians
+        fn = make_train_step([cam], cfg, default_capacity(n))
+        opt = _optimizer(params, cfg)
+
+        def one():
+            return fn(params, opt, cam.modelview, cam.projection, target)
+
+        host_ms = []
+        for _ in range(6):
+            sync()
+            t0 = time.perf_counter()
+            one()
+            sync()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        median = statistics.median(host_ms[1:])
+        log(f"[densify] step {name} growth, {n} rows: median {median:.3f} "
+            f"ms of 5 (all: {', '.join(f'{t:.3f}' for t in host_ms[1:])})")
+        log_profile(f"densify-profile {name} growth, {n} rows",
+                    *profile_calls(one, 3), median)
+    return launches, grown
+
+
+def check_grown(params, cam):
+    """K1, K4 and K7's slot entry against their plain versions on the
+    grown bucket's binning, as ``fit()`` draws it after densify: dead and
+    padding rows among the live ones, ``default_capacity`` of the grown
+    row count (a long tail of empty slots). K1 integer-equal, K4 on 64
+    sampled tiles at K4_TOL_FULL, K7 within the run tolerance."""
+    import torch
+    from splatjax_torch.ops import segreduce as sr
+    from splatjax_torch.ops.binning import (
+        TileConfig, _effective_cum, _gid_order, depth_order,
+        tile_slot_positions,
+    )
+    from splatjax_torch.ops.expand import (
+        expand_instances, expand_instances_plain,
+    )
+    from splatjax_torch.ops.rasterize_vjp import (
+        rasterize_bwd, rasterize_bwd_plain,
+    )
+    from splatjax_torch.render import default_capacity
+
+    n = params.num_gaussians
+    capacity = default_capacity(n)
+    with torch.no_grad():
+        scene = params.to_scene()
+    cfg = TileConfig(cam.width, cam.height)
+    d = depth_order(projected(scene, cam, 1e-4), cfg)
+    args = (d.x0_d, d.y0_d, d.spanw_d, d.cum_d, d.perm, capacity,
+            cfg.tiles_x, cfg.num_tiles)
+    got, want = expand_instances(*args), expand_instances_plain(*args)
+    sync()
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("K1 differs from its plain version on the grown "
+                             "bucket")
+    culled = int((d.count_d == 0).sum())
+    total = int(d.total)
+    del d, args, got, want
+
+    cfg, b, args = k4_case(scene, cam, capacity, True, 0.999, False, 4)
+    g16 = rasterize_bwd(*args, packed16=True)
+    tiles = sample_tiles(b, cfg, g16.device)
+    g_p = rasterize_bwd_plain(*args, tiles=tiles, packed16=True)
+    idx = torch.cat([torch.arange(int(b.starts[t]), int(b.ends[t]),
+                                  device=g16.device) for t in tiles])
+    k4_err = compare_k4(g16[idx], g_p[idx], True,
+                        f"grown bucket, {n} rows, the {idx.numel()} "
+                        f"instances of {tiles.numel()} sampled tiles",
+                        tol=K4_TOL_FULL)
+    del g_p, args
+
+    k = g16.shape[0]
+    eff = _effective_cum(b.cum, b.count, b.perm, b.cum_d, b.count_d,
+                         b.overflow, k)
+    order = _gid_order(b.gauss_id)
+    run_len = torch.diff(eff.long(), prepend=eff.new_zeros(1).long())
+    got = sr._segment_reduce_slots_packed_bf16(
+        g16, tile_slot_positions(b.by_tile), b.cum_d, b.perm)
+    want = sr.segment_reduce_packed_bf16_plain(g16.index_select(0, order),
+                                               eff)
+    abs_sum = sr.segment_reduce_rows_plain(
+        sr.unpack_bf16_pairs(g16).abs().index_select(0, order), eff)
+    k7_err = _check_runs(got, want, abs_sum, run_len,
+                         "segreduce_bf16 (slots, grown bucket)")
+    log(f"[densify] grown bucket: {n} rows ({culled} culled: dead, padding "
+        f"or off screen), capacity {capacity}, {total} instances; K1 "
+        f"integer-equal to plain, K4 max |err| {k4_err:.3g}, K7 slot entry "
+        f"max |err| {k7_err:.3g} against the gid-sort plain path")
+    return dict(expand=0.0, rasterize_bwd=k4_err, segreduce_bf16=k7_err)
+
+
 def require(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
@@ -1619,11 +2000,27 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"),
+                                     prefix="chip_smoke_") as workdir:
+        launches_g = asset_path(scene, cam, smi, workdir)
+        require(launches_g, ("expand", "rasterize_fwd"), "asset")
+        launches_h, grown = densify_path(noisy_start(scene), cam, target,
+                                         workdir)
+    require(launches_h, ("expand", "rasterize_fwd16", "rasterize_bwd",
+                         "segreduce_bf16"), "densify + checkpoint")
+    log(f"[launches] asset: {launches_g}; densify + checkpoint: "
+        f"{launches_h}")
+    k1["max_abs_err"] = max(k1["max_abs_err"], grown["expand"])
+    k4["max_abs_err"] = max(k4["max_abs_err"], grown["rasterize_bwd"])
+    seg["segreduce_bf16"]["max_abs_err"] = max(
+        seg["segreduce_bf16"]["max_abs_err"], grown["segreduce_bf16"])
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)
     total = {n: sum(launches[n] for launches in (
         launches_a, launches_b, launches_c, launches_d, launches_e,
-        launches_f)) for n in launches_a}
+        launches_f, launches_g, launches_h)) for n in launches_a}
     csrc = "splatjax_torch/csrc/"
     table = [
         dict(name="expand_instances", route="cuda",

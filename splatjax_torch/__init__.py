@@ -31,6 +31,7 @@ from splatjax_torch.scene import (
     trainable_from_numpy,
 )
 from splatjax_torch.viewer import SplatRenderer
+from splatjax_torch import io
 
 __all__ = [
     "CachedBins",
@@ -44,6 +45,7 @@ __all__ = [
     "compose_scene",
     "composite_over",
     "importance",
+    "io",
     "look_at",
     "make_camera",
     "merge_opaque_layers",

@@ -4,6 +4,10 @@
 Pixel convention: pixel (row i, col j) has its center at
 ``px = (ndc_x + 1) W / 2`` and ``row = (1 - ndc_y) H / 2``; the focal length
 is ``(H / 2) |P[1][1]|``, as the reference viewer derives it per frame.
+
+Constructors: :func:`make_camera` (clean GL matrices from
+:func:`perspective` and :func:`look_at`) and :meth:`Camera.from_three`
+(THREE.js-style matrices with the reference viewer's Y flips).
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 
 from splatjax_torch.device import resolve_device
+
+_FLIP_Y = np.diag(np.array([1.0, -1.0, 1.0, 1.0], dtype=np.float32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +33,29 @@ class Camera:
     @property
     def focal(self) -> torch.Tensor:
         return (self.height / 2.0) * self.projection[1, 1].abs()
+
+    @staticmethod
+    def from_three(camera_world: np.ndarray, projection: np.ndarray,
+                   object_world: np.ndarray | None = None, *, width: int,
+                   height: int, device="cuda") -> "Camera":
+        """Build from THREE.js-style matrices with the reference viewer's
+        flips: projection column 1 negated, and with F = diag(1, -1, 1, 1)
+        the modelview ``F @ camera_world^-1 @ object_world @ F``, in float64
+        on the host, then float32 on ``device``."""
+        dev = resolve_device(device)
+        if object_world is None:
+            object_world = np.eye(4, dtype=np.float32)
+        proj = np.asarray(projection, dtype=np.float64).copy()
+        proj[:, 1] *= -1.0
+        cw = np.asarray(camera_world, dtype=np.float64)
+        ow = np.asarray(object_world, dtype=np.float64)
+        mv = _FLIP_Y @ np.linalg.inv(cw) @ ow @ _FLIP_Y
+        return Camera(
+            modelview=torch.from_numpy(mv.astype(np.float32)).to(dev),
+            projection=torch.from_numpy(proj.astype(np.float32)).to(dev),
+            width=width,
+            height=height,
+        )
 
 
 def perspective(fov_y_deg: float, aspect: float, near: float = 0.1,

@@ -13,8 +13,9 @@ framework quats (w, x, y, z) = (q0, -q1, -q2, q3) and Sigma = R S^2 R^T.
 """
 from __future__ import annotations
 
+import io as _io
 import os
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -49,11 +50,24 @@ def parse_splat_bytes(data: bytes, device="cuda") -> GaussianScene:
     return scene_from_numpy(parse_splat_arrays(data), device)
 
 
-def load_splat(path: Union[str, os.PathLike], device="cuda"
-               ) -> GaussianScene:
-    """Load a .splat file onto ``device``."""
+def load_splat(path: Union[str, os.PathLike], backend: str = "auto", *,
+               device="cuda") -> GaussianScene:
+    """Load a .splat file onto ``device``. backend: "numpy"; "native" (the
+    C++ parser, built at first use; raises if it cannot be built); "auto"
+    takes the native parser when it is already built (bit-equal), else
+    NumPy."""
     with open(path, "rb") as f:
-        return parse_splat_bytes(f.read(), device)
+        data = f.read()
+    if backend in ("auto", "native"):
+        from splatjax_torch.io import native
+
+        if native.available() or (
+            backend == "native" and native.ensure_built()
+        ):
+            return native.parse_splat_bytes_native(data, device)
+        if backend == "native":
+            raise RuntimeError("native ingestion library unavailable")
+    return parse_splat_bytes(data, device)
 
 
 def scene_to_splat_bytes(scene: GaussianScene) -> bytes:
@@ -92,3 +106,27 @@ def scene_to_splat_bytes(scene: GaussianScene) -> bytes:
 def save_splat(path: Union[str, os.PathLike], scene: GaussianScene) -> None:
     with open(path, "wb") as f:
         f.write(scene_to_splat_bytes(scene))
+
+
+class StreamingSplatReader:
+    """Progressive .splat ingestion: feed byte chunks of any size, get the
+    complete rows back as scenes on ``device`` (partial rows are carried
+    over to the next chunk, as the viewer's streaming loader does)."""
+
+    def __init__(self, device="cuda") -> None:
+        self._pending = _io.BytesIO()
+        self.rows_emitted = 0
+        self.device = device
+
+    def feed(self, chunk: bytes) -> Optional[GaussianScene]:
+        self._pending.write(chunk)
+        buf = self._pending.getvalue()
+        n_rows = len(buf) // ROW_LENGTH
+        if n_rows == 0:
+            return None
+        complete = buf[: n_rows * ROW_LENGTH]
+        remainder = buf[n_rows * ROW_LENGTH:]
+        self._pending = _io.BytesIO()
+        self._pending.write(remainder)
+        self.rows_emitted += n_rows
+        return parse_splat_bytes(complete, self.device)

@@ -41,6 +41,14 @@ def synthetic_scene(n: int, seed: int = 0, *, extent: float = 1.0,
     )
 
 
+def synthetic_splat_bytes(n: int, seed: int = 0) -> bytes:
+    """Raw .splat bytes of a random scene (splatjax's bytes for the same
+    ``(n, seed)``)."""
+    from splatjax_torch.io.splat_format import scene_to_splat_bytes
+
+    return scene_to_splat_bytes(synthetic_scene(n, seed, device="cpu"))
+
+
 def tile_scene(base: GaussianScene, n: int, *, scale: float = 0.25,
                jitter: float = 0.9, seed: int = 11) -> GaussianScene:
     """Tile a small scene into an n-splat one on the base scene's device:

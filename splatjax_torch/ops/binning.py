@@ -13,7 +13,10 @@
    (:func:`tile_order`).
 
 Capacity truncation drops the depth-farthest instances. The whole path
-stays on the device: ``num_instances`` and ``overflow`` are 0-d tensors.
+stays on the device: ``num_instances`` and ``overflow`` are 0-d int64
+tensors. The instance counts are summed in int64; the int32 cumsums the
+kernels take saturate at 2^31 - 1, which is above any capacity, so a
+scene whose instances pass 2^31 drops its excess instead of wrapping.
 
 The transpose of the per-instance row gather (the backward's path back to
 gaussians) is :func:`segment_sum_by_gid`: per-gaussian sums of the rows
@@ -33,12 +36,12 @@ import torch
 from splatjax_torch.ops.expand import expand_instances
 from splatjax_torch.ops.projection import ProjectedGaussians
 from splatjax_torch.ops.segreduce import (
+    _segment_reduce_slots_packed_bf16,
+    _segment_reduce_slots_packed_u16,
+    _segment_reduce_slots_rows,
     segment_reduce_packed_bf16,
     segment_reduce_packed_u16,
     segment_reduce_rows,
-    segment_reduce_slots_packed_bf16,
-    segment_reduce_slots_packed_u16,
-    segment_reduce_slots_rows,
 )
 
 
@@ -59,6 +62,9 @@ def _grad_gather_mode() -> str:
 FEAT_DIM = 16
 # The CUDA rasterizer runs one thread per pixel of a 16x16 tile.
 TILE = 16
+# Where the int32 instance cumsums saturate. Kernel indices are int32, so a
+# capacity is always below it.
+CUM_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +100,11 @@ class TileConfig:
 
 class BinnedInstances(NamedTuple):
     """Fixed-capacity, tile-sorted duplicated instances. The trailing run
-    residuals (cum/count/perm/cum_d/count_d, int32) are what the backward's
-    segment sum will consume. ``order`` is the rasterizer kernels' block
-    order over the tiles (:func:`tile_order` of ``ends - starts``), built
-    here once per binning and used by K2, K3 and K4 on these bounds.
+    residuals (cum/count/perm/cum_d/count_d, int32; the cumsums saturated
+    at ``CUM_MAX``) are what the backward's segment sum will consume.
+    ``order`` is the rasterizer kernels' block order over the tiles
+    (:func:`tile_order` of ``ends - starts``), built here once per binning
+    and used by K2, K3 and K4 on these bounds.
     ``by_tile`` is the tile sort's permutation (tile-order position i holds
     expansion slot ``by_tile[i]``), a port-only field: the gather
     transpose on CUDA reads rows through its inverse."""
@@ -107,8 +114,8 @@ class BinnedInstances(NamedTuple):
     starts: torch.Tensor         # (num_tiles,) int32
     ends: torch.Tensor           # (num_tiles,) int32
     order: torch.Tensor          # (num_tiles,) int32 tiles, heaviest first
-    num_instances: torch.Tensor  # () int32, total before the capacity cut
-    overflow: torch.Tensor       # () int32, instances dropped
+    num_instances: torch.Tensor  # () int64, total before the capacity cut
+    overflow: torch.Tensor       # () int64, instances dropped
     cum: Optional[torch.Tensor] = None      # (N,) inclusive instance cumsum
     count: Optional[torch.Tensor] = None    # (N,) per-gaussian count
     perm: Optional[torch.Tensor] = None     # (N,) depth-compact order
@@ -141,9 +148,12 @@ def _effective_cum(cum, count, perm, cum_d, count_d, overflow, k: int
     """Per-gaussian run ends (N,) int32 in gid-sorted instance order,
     corrected for capacity truncation (the depth-farthest instances are
     the ones dropped). Both forms are computed and one is selected on the
-    device, so the host never waits on ``overflow``."""
-    del count
-    inc_d = torch.minimum((k - (cum_d - count_d)).clamp_min(0), count_d)
+    device, so the host never waits on ``overflow``. Depth rank r keeps
+    the slots ``[min(cum_d[r-1], k), min(cum_d[r], k))``, which holds for
+    exact and for saturated ``cum_d``."""
+    del count, count_d
+    kept = cum_d.long().clamp(max=k)
+    inc_d = torch.diff(kept, prepend=kept.new_zeros(1)).to(torch.int32)
     eff_count = torch.zeros_like(inc_d).scatter_(0, perm.long(), inc_d)
     truncated = torch.cumsum(eff_count, dim=0, dtype=torch.int32)
     return torch.where(overflow > 0, truncated, cum.to(torch.int32))
@@ -204,10 +214,10 @@ def _segment_sum_slots(g: torch.Tensor, slot_pos: torch.Tensor, cum_d,
     mode = _grad_gather_mode()
     if mode == "i16" and g.shape[1] == 16:
         packed, scale = quantize_grad_u16(g)
-        return segment_reduce_slots_packed_u16(packed, slot_pos, cum_d,
-                                               perm) * scale
-    return segment_reduce_slots_rows(_gather_rows_mode(g, mode).contiguous(),
-                                     slot_pos, cum_d, perm)
+        return _segment_reduce_slots_packed_u16(packed, slot_pos, cum_d,
+                                                perm) * scale
+    return _segment_reduce_slots_rows(
+        _gather_rows_mode(g, mode).contiguous(), slot_pos, cum_d, perm)
 
 
 def segment_sum_by_gid(g: torch.Tensor, gid: torch.Tensor, cum, count,
@@ -250,7 +260,7 @@ def segment_sum_by_gid_packed_bf16(gp: torch.Tensor, gid: torch.Tensor, cum,
     :func:`segment_sum_by_gid`."""
     k = gp.shape[0]
     if gp.device.type != "cpu":
-        return segment_reduce_slots_packed_bf16(
+        return _segment_reduce_slots_packed_bf16(
             gp, _slot_pos(by_tile, k), cum_d, perm)
     eff_cum = _effective_cum(cum, count, perm, cum_d, count_d, overflow, k)
     return segment_reduce_packed_bf16(gp.index_select(0, _gid_order(gid)),
@@ -282,8 +292,10 @@ def gaussian_tile_span(proj: ProjectedGaussians, cfg: TileConfig):
     return x0, x1, y0, y1, count.to(i32)
 
 
-def _cumsum_i32(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, dim=0, dtype=torch.int32)
+def _saturate_i32(cum: torch.Tensor) -> torch.Tensor:
+    """An int64 cumsum as int32, saturated at ``CUM_MAX``: exact below it,
+    and never wrapped past it."""
+    return cum.clamp(max=CUM_MAX).to(torch.int32)
 
 
 class DepthOrder(NamedTuple):
@@ -298,13 +310,15 @@ class DepthOrder(NamedTuple):
     count_d: torch.Tensor  # instance count in depth order
     cum: torch.Tensor      # inclusive instance cumsum, original order
     count: torch.Tensor    # instance count, original order
+    total: torch.Tensor    # () int64, all instances
 
 
 def depth_order(proj: ProjectedGaussians, cfg: TileConfig) -> DepthOrder:
     """Tile spans and the depth-compact gaussian sort: gaussians with
     instances first, front to back (ascending -depth); empty ones keyed
     +inf to the tail. The sort is stable, so ties keep index order exactly
-    like splatjax's (key, iota) sort."""
+    like splatjax's (key, iota) sort. The cumsums are summed in int64 and
+    saturated at ``CUM_MAX`` (:func:`_saturate_i32`); ``total`` is exact."""
     i32 = torch.int32
     x0, x1, y0, y1, count = gaussian_tile_span(proj, cfg)
     span_w = (x1 - x0 + 1).to(i32)
@@ -312,15 +326,17 @@ def depth_order(proj: ProjectedGaussians, cfg: TileConfig) -> DepthOrder:
                        torch.full_like(proj.depth, float("inf")))
     _, perm64 = torch.sort(dkey, stable=True)
     count_d = count[perm64]
+    cum64 = torch.cumsum(count, dim=0, dtype=torch.int64)
     return DepthOrder(
         x0_d=x0[perm64].contiguous(),
         y0_d=y0[perm64].contiguous(),
         spanw_d=span_w[perm64].contiguous(),
-        cum_d=_cumsum_i32(count_d),
+        cum_d=_saturate_i32(torch.cumsum(count_d, dim=0, dtype=torch.int64)),
         perm=perm64.to(i32),
         count_d=count_d,
-        cum=_cumsum_i32(count),
+        cum=_saturate_i32(cum64),
         count=count,
+        total=cum64[-1],
     )
 
 
@@ -338,11 +354,14 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
     """Build the tile-sorted instance lists with static capacity K_cap.
 
     Within a tile, instances are in exact f32 front-to-back depth order."""
+    if not 0 < capacity <= CUM_MAX:
+        raise ValueError(f"capacity must be in [1, {CUM_MAX}], got "
+                         f"{capacity}")
     n = proj.mean2d.shape[0]
     dev = proj.mean2d.device
     i32 = torch.int32
     if n == 0:  # empty scene: all-sentinel instances
-        zero = torch.zeros((), dtype=i32, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
         return BinnedInstances(
             gauss_id=torch.zeros((capacity,), dtype=i32, device=dev),
             tile_id=torch.full((capacity,), cfg.num_tiles, dtype=i32,
@@ -356,7 +375,6 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
         )
 
     d = depth_order(proj, cfg)
-    total = d.cum[-1]
     tile, gid = expand_instances(
         d.x0_d, d.y0_d, d.spanw_d, d.cum_d, d.perm,
         capacity, cfg.tiles_x, cfg.num_tiles,
@@ -382,8 +400,8 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
         starts=starts,
         ends=ends,
         order=tile_order(ends - starts),
-        num_instances=total,
-        overflow=torch.clamp_min(total - capacity, 0),
+        num_instances=d.total,
+        overflow=torch.clamp_min(d.total - capacity, 0),
         cum=d.cum,
         count=d.count,
         perm=d.perm,

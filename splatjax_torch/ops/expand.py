@@ -7,7 +7,9 @@ Slot ``j < min(total, capacity)`` belongs to the depth-ordered gaussian
 ``tile = (y0 + local // span_w) * tiles_x + x0 + local % span_w`` and
 ``gid = perm[g]``. Slots past the end hold ``tile = num_tiles`` and
 ``gid = n - 1`` (the backward's run arithmetic relies on that id).
-Capacity overflow drops the depth-farthest instances.
+Capacity overflow drops the depth-farthest instances. ``cum_d`` may
+saturate (``ops.binning.CUM_MAX``) past the capacity: only slots below it
+are expanded.
 """
 from __future__ import annotations
 
@@ -71,10 +73,11 @@ def expand_instances_plain(x0_d, y0_d, spanw_d, cum_d, perm, capacity: int,
     """Plain PyTorch version of :func:`expand_instances` (same contract)."""
     n = cum_d.shape[0]
     dev = cum_d.device
-    cum = cum_d.long()
+    # counts cut at the capacity: the slots past it are never materialised
+    cum = cum_d.long().clamp(max=capacity)
     count = torch.diff(cum, prepend=cum.new_zeros(1))
     cum_ex = cum - count
-    total = min(int(cum[-1]), capacity)
+    total = int(cum[-1])
     g = torch.repeat_interleave(
         torch.arange(n, device=dev), count
     )[:total]

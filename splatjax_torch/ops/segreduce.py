@@ -18,8 +18,10 @@ Two ways to name a gaussian's rows, one kernel:
   owning ``[eff_cum[g-1], eff_cum[g])``; ``eff_cum`` is the (N,) int32
   inclusive run-end prefix, monotone, ``eff_cum[-1] <= K``. splatjax's
   contract.
-* slots (:func:`segment_reduce_slots_rows`, ...): rows in tile order, as the
-  backward writes them. Depth rank r owns the expansion slots
+* slots (``_segment_reduce_slots_rows``, ...; library-internal, fed only
+  from ``bin_gaussians``' own outputs, because the kernel trusts
+  ``slot_pos``, ``cum_d`` and ``perm`` as indices): rows in tile order, as
+  the backward writes them. Depth rank r owns the expansion slots
   ``[min(cum_d[r-1], K), min(cum_d[r], K))``, slot s lies at row
   ``slot_pos[s]`` (the inverse of the stable tile sort), and the sum goes
   to row ``perm[r]``. A gaussian's slots ascend in tile id, so its rows
@@ -213,7 +215,8 @@ def _slot_sums(values: torch.Tensor, slot_pos: torch.Tensor,
     return torch.empty_like(by_rank).index_copy_(0, perm.long(), by_rank)
 
 
-def segment_reduce_slots_rows(rows, slot_pos, cum_d, perm) -> torch.Tensor:
+def _segment_reduce_slots_rows(rows, slot_pos, cum_d, perm
+                               ) -> torch.Tensor:
     """K5 on rows in tile order: (K, C) f32, C dividing 32, ``slot_pos``
     (K,) int32, ``cum_d``/``perm`` (N,) int32 -> (N, C) f32 per-gaussian
     sums (see the module doc). CPU tensors take the plain version; CUDA
@@ -221,7 +224,8 @@ def segment_reduce_slots_rows(rows, slot_pos, cum_d, perm) -> torch.Tensor:
     dev = _check_slots(rows, slot_pos, cum_d, perm, torch.float32)
     lanes = _f32_lanes(rows)
     if dev.type == "cpu":
-        return segment_reduce_slots_rows_plain(rows, slot_pos, cum_d, perm)
+        return _segment_reduce_slots_rows_plain(rows, slot_pos, cum_d,
+                                                perm)
     c = rows.shape[1]
     out = _launch("splat_segreduce_slots_f32", _SLOT_ARGTYPES,
                   "segreduce_rows", lanes, (slot_pos, cum_d, perm),
@@ -230,51 +234,51 @@ def segment_reduce_slots_rows(rows, slot_pos, cum_d, perm) -> torch.Tensor:
     return out if lanes is rows else out[:, :c].contiguous()
 
 
-def segment_reduce_slots_rows_plain(rows, slot_pos, cum_d, perm
+def _segment_reduce_slots_rows_plain(rows, slot_pos, cum_d, perm
                                     ) -> torch.Tensor:
-    """Plain version of :func:`segment_reduce_slots_rows` (float64
+    """Plain version of :func:`_segment_reduce_slots_rows` (float64
     sums)."""
     return _slot_sums(rows.double(), slot_pos, cum_d, perm).float()
 
 
-def segment_reduce_slots_packed_u16(rows, slot_pos, cum_d, perm
+def _segment_reduce_slots_packed_u16(rows, slot_pos, cum_d, perm
                                     ) -> torch.Tensor:
     """K6 on (K, 8) int32 biased-u16 pairs in tile order -> (N, 16) f32
     exact per-gaussian sums of q."""
     dev = _check_slots(rows, slot_pos, cum_d, perm, torch.int32,
                        PACKED_PLANES)
     if dev.type == "cpu":
-        return segment_reduce_slots_packed_u16_plain(rows, slot_pos, cum_d,
-                                                     perm)
+        return _segment_reduce_slots_packed_u16_plain(rows, slot_pos,
+                                                      cum_d, perm)
     return _launch("splat_segreduce_slots_packed", _SLOT_ARGTYPES,
                    "segreduce_u16", rows, (slot_pos, cum_d, perm),
                    cum_d.shape[0], (rows.shape[0], 0), 2 * PACKED_PLANES)
 
 
-def segment_reduce_slots_packed_u16_plain(rows, slot_pos, cum_d, perm
+def _segment_reduce_slots_packed_u16_plain(rows, slot_pos, cum_d, perm
                                           ) -> torch.Tensor:
-    """Plain version of :func:`segment_reduce_slots_packed_u16` (int64
+    """Plain version of :func:`_segment_reduce_slots_packed_u16` (int64
     sums, then one rounding to f32)."""
     return _slot_sums(unpack_u16_pairs(rows), slot_pos, cum_d, perm).float()
 
 
-def segment_reduce_slots_packed_bf16(rows, slot_pos, cum_d, perm
+def _segment_reduce_slots_packed_bf16(rows, slot_pos, cum_d, perm
                                      ) -> torch.Tensor:
     """K7 on (K, 8) int32 bf16 pairs in tile order, as the 16-byte backward
     writes them -> (N, 16) f32 per-gaussian sums."""
     dev = _check_slots(rows, slot_pos, cum_d, perm, torch.int32,
                        PACKED_PLANES)
     if dev.type == "cpu":
-        return segment_reduce_slots_packed_bf16_plain(rows, slot_pos, cum_d,
-                                                      perm)
+        return _segment_reduce_slots_packed_bf16_plain(rows, slot_pos,
+                                                       cum_d, perm)
     return _launch("splat_segreduce_slots_packed", _SLOT_ARGTYPES,
                    "segreduce_bf16", rows, (slot_pos, cum_d, perm),
                    cum_d.shape[0], (rows.shape[0], 1), 2 * PACKED_PLANES)
 
 
-def segment_reduce_slots_packed_bf16_plain(rows, slot_pos, cum_d, perm
+def _segment_reduce_slots_packed_bf16_plain(rows, slot_pos, cum_d, perm
                                            ) -> torch.Tensor:
-    """Plain version of :func:`segment_reduce_slots_packed_bf16` (float64
+    """Plain version of :func:`_segment_reduce_slots_packed_bf16` (float64
     sums)."""
     return _slot_sums(unpack_bf16_pairs(rows).double(), slot_pos, cum_d,
                       perm).float()

@@ -191,7 +191,7 @@ def render(
     Args (as ``splatjax.render.render``; tiles are always 16x16):
       capacity: static instance-buffer size (None -> 4x N). Instances past
         it are dropped, depth-farthest first; ``return_overflow=True``
-        returns their count as a 0-d int32 tensor.
+        returns their count as a 0-d int64 tensor.
       alpha_clip: "auto" (0.999, or None under viewer_exact), a float, or
         None for no clamp.
       early_stop: stop a tile once every transmittance is below it

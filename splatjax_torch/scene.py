@@ -45,6 +45,11 @@ class GaussianScene:
     def device(self) -> torch.device:
         return self.means.device
 
+    def normalized(self) -> "GaussianScene":
+        """A copy with unit quaternions (the training path)."""
+        q = self.quats / torch.linalg.norm(self.quats, dim=-1, keepdim=True)
+        return dataclasses.replace(self, quats=q)
+
 
 _FIELDS = ("means", "scales", "quats", "colors", "opacities", "sh")
 

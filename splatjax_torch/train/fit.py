@@ -3,10 +3,10 @@
 
 Optimizes means / scales / rotations / opacities / colors (and SH) against
 target images through the differentiable tiled renderer, with per-leaf
-learning rates as in standard 3DGS practice. Not ported yet: adaptive
-density control (``densify=``), checkpoint/resume (``checkpoint_dir=``,
-``resume=``) and multi-device steps (``mesh=``, ``band_axis=``); each
-raises ``NotImplementedError``.
+learning rates as in standard 3DGS practice, adaptive density control
+(:mod:`.densify`) and checkpoint/resume (:mod:`.checkpoint`). Not ported
+yet: multi-device steps (``mesh=``, ``band_axis=``), which raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,12 +14,15 @@ import dataclasses
 import time
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
 from splatjax_torch.render import default_capacity, render
 from splatjax_torch.scene import GaussianScene, TrainableGaussians
+from splatjax_torch.train.checkpoint import CheckpointManager
+from splatjax_torch.train.densify import DensifyConfig, densify_and_prune
 from splatjax_torch.train.loss import combined_loss, psnr
 
 
@@ -115,60 +118,122 @@ def fit(
     checkpoint_every: int = 0,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
-    densify=None,
+    densify: Optional[DensifyConfig] = None,
+    densify_seed: int = 0,
     log_fn: Optional[Callable[[dict], None]] = None,
     mesh=None,
     band_axis: Optional[str] = None,
 ):
     """Optimize gaussians to match target images on the parameters' device.
-    Returns (params, history); ``params`` is updated in place (a
-    ``GaussianScene`` start is converted first).
+    Returns (params, history). ``params`` is updated in place until a
+    densify pass or a resume replaces it with a new object (densify can
+    grow its rows), so use the returned one; a ``GaussianScene`` start is
+    converted first.
 
     targets: (H, W, 3|4) tensors aligned with ``cameras`` (all cameras share
     one size); step i renders view i mod len(cameras). history holds
     {"step", "loss", "psnr", "elapsed_s"} every ``log_every`` steps and at
     the last step. ``checkpoint_fn(step, params)`` runs every
-    ``checkpoint_every`` steps."""
-    for name, value in (("densify", densify),
-                        ("checkpoint_dir", checkpoint_dir),
-                        ("mesh", mesh), ("band_axis", band_axis)):
+    ``checkpoint_every`` steps.
+
+    ``checkpoint_dir``: the training state is saved there every
+    ``checkpoint_every`` steps and at the end (:class:`CheckpointManager`);
+    ``resume=True`` restores the latest checkpoint in it and continues
+    from the step after it. With ``densify`` the checkpoint also holds the
+    slot mask, the gradient sums and the generator's state, so a resumed
+    run takes the steps an uninterrupted one takes (splatjax restores only
+    the parameters and the optimizer).
+
+    ``densify=DensifyConfig(...)``: clone/split/prune passes between steps
+    (:func:`densify_and_prune`, children drawn from
+    ``np.random.default_rng(densify_seed)``); when the row count changes,
+    the step is rebuilt for ``cfg.capacity`` or, without one,
+    ``default_capacity`` of the new count."""
+    for name, value in (("mesh", mesh), ("band_axis", band_axis)):
         if value is not None:
             raise NotImplementedError(
                 f"fit({name}=...) is not ported yet; see ROADMAP.md")
-    if resume:
-        raise NotImplementedError("fit(resume=True) is not ported yet; see "
-                                  "ROADMAP.md")
     if isinstance(initial, GaussianScene):
         params = TrainableGaussians.from_scene(initial)
     else:
         params = initial
     dev = params.means.device
-    capacity = cfg.capacity or default_capacity(params.num_gaussians)
-    step_fn = make_train_step(cameras, cfg, capacity)
+    k = max(cfg.steps_per_call, 1)
+    if k > 1 and densify is not None:
+        raise ValueError(
+            "steps_per_call > 1 is incompatible with densify (the "
+            "clone/split/prune pass needs per-step python control); set "
+            "steps_per_call=1 or drop densify")
+
+    def build_step(n):
+        return make_train_step(cameras, cfg,
+                               cfg.capacity or default_capacity(n))
+
     opt = _optimizer(params, cfg)
+    n_rows = params.num_gaussians
+    alive = np.ones((n_rows,), bool)
+    grad_sum = torch.zeros((n_rows,), dtype=torch.float64, device=dev)
+    grad_cnt = torch.zeros((n_rows,), dtype=torch.int64, device=dev)
+    dense_rng = None
+    if densify is not None:
+        dense_rng = np.random.default_rng(densify_seed)
+
+    start_step = 0
+    mgr = None
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir)
+        if resume and mgr.latest_step() is not None:
+            params, opt, start_step, extra = mgr.restore(params, opt)
+            n_rows = params.num_gaussians
+            if densify is not None and "alive" in extra:
+                alive = extra["alive"].numpy()
+                grad_sum = extra["grad_sum"].to(dev)
+                grad_cnt = extra["grad_cnt"].to(dev)
+                dense_rng.bit_generator.state = extra["rng"]
+            else:  # saved without densify: its state starts afresh
+                alive = np.ones((n_rows,), bool)
+                grad_sum = grad_sum.new_zeros((n_rows,))
+                grad_cnt = grad_cnt.new_zeros((n_rows,))
+    step_fn = build_step(n_rows)
+
     mvs = [c.modelview.to(dev, torch.float32) for c in cameras]
     prs = [c.projection.to(dev, torch.float32) for c in cameras]
     targets = [torch.as_tensor(t, device=dev)[..., :4].to(torch.float32)
                for t in targets]
 
-    k = max(cfg.steps_per_call, 1)
-    if k > 1 and cfg.steps % k:
-        raise ValueError(f"steps ({cfg.steps}) must be a multiple of "
-                         f"steps_per_call ({k})")
+    if k > 1 and (cfg.steps - start_step) % k:
+        raise ValueError(f"steps ({cfg.steps}, resuming at {start_step}) "
+                         f"must be a multiple of steps_per_call ({k})")
     history = []
     t_start = time.time()
-    for i in range(0, cfg.steps, k):
+    for i in range(start_step, cfg.steps, k):
         vis = [(i + j) % len(cameras) for j in range(k)]
         if k > 1:
-            loss, p, _ = step_fn(
+            loss, p, gnorm = step_fn(
                 params, opt,
                 torch.stack([mvs[v] for v in vis]),
                 torch.stack([prs[v] for v in vis]),
                 torch.stack([targets[v] for v in vis]),
             )
         else:
-            loss, p, _ = step_fn(params, opt, mvs[vis[0]], prs[vis[0]],
-                                 targets[vis[0]])
+            loss, p, gnorm = step_fn(params, opt, mvs[vis[0]], prs[vis[0]],
+                                     targets[vis[0]])
+        if densify is not None:
+            grad_sum += gnorm
+            grad_cnt += 1
+            if (densify.start <= i <= densify.stop
+                    and (i - densify.start) % densify.every
+                    == densify.every - 1):
+                params, opt, alive, rep = densify_and_prune(
+                    params, opt, grad_sum.cpu().numpy(),
+                    grad_cnt.cpu().numpy(), alive, densify, dense_rng)
+                if params.num_gaussians != n_rows:
+                    n_rows = params.num_gaussians
+                    step_fn = build_step(n_rows)
+                grad_sum = grad_sum.new_zeros((n_rows,))
+                grad_cnt = grad_cnt.new_zeros((n_rows,))
+                if log_fn is not None:
+                    log_fn({"step": i, "densify": rep})
         if cfg.log_every and (i % cfg.log_every < k or i + k >= cfg.steps):
             rec = {
                 "step": i + k - 1,
@@ -180,6 +245,15 @@ def fit(
             if log_fn is not None:
                 log_fn(rec)
         done = i + k
+        if mgr is not None and checkpoint_every and (
+                done % checkpoint_every < k or done == cfg.steps):
+            extra = None
+            if densify is not None:
+                extra = {"alive": torch.from_numpy(alive),
+                         "grad_sum": grad_sum.cpu(),
+                         "grad_cnt": grad_cnt.cpu(),
+                         "rng": dense_rng.bit_generator.state}
+            mgr.save(done, params, opt, extra)
         if checkpoint_fn is not None and checkpoint_every and (
                 done % checkpoint_every < k):
             checkpoint_fn(done, params)

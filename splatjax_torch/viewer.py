@@ -6,7 +6,9 @@ over the tiled pipeline.
     img = renderer.render(make_camera((0, 0, 3), (0, 0, 0),
                                       width=1920, height=1080))
 
-:meth:`SplatRenderer.feed` ingests .splat bytes progressively, as the
+``src`` is a path or a ``file://`` or ``http(s)://`` URL, streamed with
+progress events. :meth:`SplatRenderer.feed` and
+:meth:`SplatRenderer.from_stream` ingest .splat bytes progressively, as the
 viewer's streaming loader does. ``resort_interval > 1`` redraws against a
 tile index rebuilt every that many frames (the reference viewer drawing
 with the worker's previous sort order).
@@ -15,13 +17,15 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
+from splatjax_torch.io.ply_format import parse_ply_bytes
 from splatjax_torch.io.splat_format import ROW_LENGTH, parse_splat_bytes
+from splatjax_torch.io.stream import stream_chunks
 from splatjax_torch.render import (
     _scale_camera,
     bin_scene,
@@ -60,7 +64,10 @@ class SplatRenderer:
     """Load-and-render surface mirroring the reference component schema.
 
     Args:
-      src: path of a local .splat file.
+      src: a .splat or .ply asset, as a path or a ``file://`` or
+        ``http(s)://`` URL. A .ply (the extension tested without any
+        ``?query``) is read whole and converted; a .splat is fed chunk by
+        chunk as it arrives.
       scene: alternatively, an in-memory GaussianScene.
       cutout: optional (4, 4) world -> unit-box matrix.
       pixel_ratio: resolution scale of render calls (0.5 renders at half
@@ -69,6 +76,9 @@ class SplatRenderer:
       max_splats: truncation like the viewer's texture capacity.
       capacity / alpha_clip / early_stop / viewer_exact / feature_bytes /
         background: see :func:`splatjax_torch.render.render`.
+      progress: optional callback taking each
+        :class:`splatjax_torch.io.stream.StreamProgress` of a ``src``
+        load, the last one with ``done=True``.
       resort_interval: 1 renders the exact per-frame sort; N > 1 rebuilds
         a cached tile index (``bin_scene(cache_params=True)``) every N
         frames and whenever the scene object or the viewport changes, and
@@ -89,6 +99,7 @@ class SplatRenderer:
     viewer_exact: bool = False
     feature_bytes: object = "auto"
     background: Optional[object] = None
+    progress: Optional[object] = None
     resort_interval: int = 1
     device: object = "cuda"
 
@@ -101,14 +112,14 @@ class SplatRenderer:
         self._bins_key = None         # (scene object, width, height)
         self._frames_since_sort = 0
         if self.src is not None:
-            if str(self.src).endswith(".ply"):
-                raise NotImplementedError(
-                    ".ply assets wait for the port of io/ply_format.py; "
-                    "see ROADMAP.md"
-                )
-            with open(self.src, "rb") as f:
-                self.feed(f.read())
-            self._materialize()
+            chunks = stream_chunks(self.src, progress=self.progress)
+            if str(self.src).split("?")[0].endswith(".ply"):
+                self.scene = parse_ply_bytes(b"".join(chunks),
+                                             device=self.device)
+            else:
+                for chunk in chunks:
+                    self.feed(chunk)
+                self._materialize()
         if self.scene is not None and \
                 self.scene.num_gaussians > self.max_splats:
             self.scene = _truncate(self.scene, self.max_splats)
@@ -137,6 +148,16 @@ class SplatRenderer:
         self.scene = _concat_scenes(parts)
         self._parts = []
         self._fed = 0
+
+    @classmethod
+    def from_stream(cls, chunks: Iterable[bytes], **kw) -> "SplatRenderer":
+        """A renderer fed the .splat byte ``chunks`` (for example
+        :func:`splatjax_torch.io.stream.stream_chunks` of a URL);
+        ``kw`` are the dataclass fields."""
+        r = cls(**kw)
+        for c in chunks:
+            r.feed(c)
+        return r
 
     # -- rendering -----------------------------------------------------------
     def render(self, camera: Camera, xr: bool = False, **overrides):

@@ -176,3 +176,75 @@ def test_expand_plain_matches_splatjax_kernel(projected, capacity):
     n = d.cum_d.shape[0]
     assert (gid_t.numpy()[min(total, capacity):] == n - 1).all()
     assert (tile_t.numpy()[min(total, capacity):] == cfg.num_tiles).all()
+
+
+def _wide_viewport_bins(capacity):
+    """300 gaussians that each cover all 8,388,608 tiles of a 65536x32768
+    viewport: 2,516,582,400 instances, past 2^31 with N small."""
+    n = 300
+    cfg = TileConfig(65536, 32768)
+    rng = np.random.default_rng(8)
+    proj = TProj(
+        mean2d=torch.tensor([[32768.0, 16384.0]]).repeat(n, 1),
+        conic=torch.ones((n, 3)),
+        depth=torch.from_numpy(-rng.permutation(n).astype(np.float32) - 1),
+        mask=torch.ones((n,), dtype=torch.bool),
+        bbox_half=torch.tensor([[40000.0, 20000.0]]).repeat(n, 1),
+        color=torch.ones((n, 3)),
+        opacity=torch.ones((n,)),
+    )
+    return proj, cfg, n * cfg.num_tiles
+
+
+def test_instance_counts_past_int32():
+    """The count sum passes 2^31: num_instances and overflow are the true
+    int64 values, the int32 cumsums saturate instead of wrapping, and K1's
+    plain version fills exactly the capacity's slots with the nearest
+    gaussian's tiles."""
+    capacity = 4096
+    proj, cfg, total = _wide_viewport_bins(capacity)
+    assert total > 2 ** 31
+    d = depth_order(proj, cfg)
+    assert int(d.cum_d.min()) > 0 and int(d.cum.min()) > 0
+    assert int(d.cum_d[-1]) == int(d.cum[-1]) == 2 ** 31 - 1
+    assert bool((d.cum_d[1:] >= d.cum_d[:-1]).all())
+    assert int(d.total) == total
+    b = bin_gaussians(proj, cfg, capacity)
+    assert b.num_instances.dtype == b.overflow.dtype == torch.int64
+    assert int(b.num_instances) == total
+    assert int(b.overflow) == total - capacity
+    front = int(torch.argmax(proj.depth))    # nearest: depth closest to 0
+    assert (b.gauss_id == front).all()
+    assert torch.equal(b.tile_id, torch.arange(capacity, dtype=torch.int32))
+    assert int(b.ends[capacity - 1]) == capacity
+    assert int(b.ends[-1]) == capacity
+
+
+@pytest.mark.parametrize("mode", ["f32", "i16"])
+def test_backward_runs_past_int32(monkeypatch, mode):
+    """On those bins the slot path's runs (the CUDA path, through its plain
+    versions) and the gid-sort path both put every kept row on the nearest
+    gaussian and none on the rest: the f32 gather to the sum of the rows,
+    the i16 gather bit-equal between the two paths."""
+    from splatjax_torch.ops import binning as tb
+
+    monkeypatch.setenv("SPLATJAX_GRAD_GATHER", mode)
+    capacity = 4096
+    proj, cfg, _ = _wide_viewport_bins(capacity)
+    b = bin_gaussians(proj, cfg, capacity)
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(capacity, 16)).astype(np.float32))
+    res = (b.gauss_id, b.cum, b.count, b.perm, b.cum_d, b.count_d,
+           b.overflow)
+    slots = tb._segment_sum_slots(g, tb.tile_slot_positions(b.by_tile),
+                                  b.cum_d, b.perm)
+    by_gid = tb.segment_sum_by_gid(g, *res)
+    front = int(torch.argmax(proj.depth))
+    want = torch.zeros_like(by_gid)
+    want[front] = g.double().sum(0).float()
+    if mode == "i16":
+        assert torch.equal(slots, by_gid)
+        assert not slots[torch.arange(slots.shape[0]) != front].any()
+    else:
+        for got in (slots, by_gid):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -5,7 +5,7 @@ backward wrote them, in tile order, reading gaussian g's rows at
 ``slot_pos[s]`` for its depth-major expansion slots s (``slot_pos`` the
 inverse of ``BinnedInstances.by_tile``), instead of sorting the rows by gid
 as splatjax does. These tests hold that path, through the plain versions of
-its kernels (``segment_reduce_slots_*`` on CPU tensors), to splatjax's
+its kernels (``_segment_reduce_slots_*`` on CPU tensors), to splatjax's
 ``segment_sum_by_gid*`` on bins that the port's ``bin_gaussians`` built
 over a 3000-splat scene at 192x128, at full capacity and with 40% of the
 instances cut.
@@ -143,10 +143,10 @@ def test_slot_sums_match_splatjax(monkeypatch, bins, splatjax_sums, mode,
     slot_pos = tb.tile_slot_positions(b.by_tile)
     if mode == "packed_bf16":
         from splatjax_torch.ops.segreduce import (
-            segment_reduce_slots_packed_bf16,
+            _segment_reduce_slots_packed_bf16,
         )
-        got = segment_reduce_slots_packed_bf16(_pack_grad_bf16(g), slot_pos,
-                                               b.cum_d, b.perm)
+        got = _segment_reduce_slots_packed_bf16(_pack_grad_bf16(g),
+                                                slot_pos, b.cum_d, b.perm)
     else:
         monkeypatch.setenv("SPLATJAX_GRAD_GATHER", mode)
         got = tb._segment_sum_slots(g, slot_pos, b.cum_d, b.perm)
@@ -193,19 +193,32 @@ def test_slot_wrappers_reject_bad_inputs(bins):
     slot_pos = tb.tile_slot_positions(b.by_tile)
     rows = torch.zeros((k, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="slot_pos"):
-        ts.segment_reduce_slots_packed_bf16(rows, slot_pos[:-1], b.cum_d,
-                                            b.perm)
+        ts._segment_reduce_slots_packed_bf16(rows, slot_pos[:-1], b.cum_d,
+                                             b.perm)
     with pytest.raises(ValueError, match="slot_pos"):
-        ts.segment_reduce_slots_packed_u16(rows, b.by_tile, b.cum_d, b.perm)
+        ts._segment_reduce_slots_packed_u16(rows, b.by_tile, b.cum_d,
+                                            b.perm)
     with pytest.raises(ValueError, match="perm"):
-        ts.segment_reduce_slots_packed_u16(rows, slot_pos, b.cum_d,
-                                           b.perm[:-1])
+        ts._segment_reduce_slots_packed_u16(rows, slot_pos, b.cum_d,
+                                            b.perm[:-1])
     with pytest.raises(ValueError, match="dividing 32"):
-        ts.segment_reduce_slots_rows(torch.zeros((k, 12)), slot_pos,
-                                     b.cum_d, b.perm)
+        ts._segment_reduce_slots_rows(torch.zeros((k, 12)), slot_pos,
+                                      b.cum_d, b.perm)
     # C < 4 is summed like any other width
     g = torch.from_numpy(_rows(k, seed=4))[:, :2].contiguous()
-    got = ts.segment_reduce_slots_rows(g, slot_pos, b.cum_d, b.perm)
-    want = ts.segment_reduce_slots_rows(
+    got = ts._segment_reduce_slots_rows(g, slot_pos, b.cum_d, b.perm)
+    want = ts._segment_reduce_slots_rows(
         torch.nn.functional.pad(g, (0, 2)), slot_pos, b.cum_d, b.perm)[:, :2]
     assert torch.equal(got, want)
+
+
+def test_slot_entries_are_library_internal():
+    """The slot entries trust slot_pos, cum_d and perm as device indices,
+    so only bin_gaussians' own outputs reach them: ops.segreduce shows no
+    public slot entry."""
+    from splatjax_torch.ops import segreduce as ts
+
+    assert [n for n in dir(ts) if "slots" in n and not n.startswith("_")
+            ] == []
+    for kind in ("rows", "packed_u16", "packed_bf16"):
+        assert callable(getattr(ts, f"_segment_reduce_slots_{kind}"))

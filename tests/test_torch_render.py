@@ -181,5 +181,11 @@ def test_unported_paths_raise():
         torch.testing.assert_close(stale.render(ct), exact, rtol=0,
                                    atol=1e-3)
     assert stale._frames_since_sort == 2
-    with pytest.raises(NotImplementedError, match="ply"):
-        st.SplatRenderer(src="scene.ply", device="cpu")
+    # .ply assets load now (held to splatjax in test_torch_stream.py): the
+    # renderer's scene is load_ply's
+    ply = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "trained_scene.ply")
+    loaded = st.SplatRenderer(src=ply, device="cpu").scene
+    want_scene = st.io.load_ply(ply, backend="numpy", device="cpu")
+    for f in ("means", "scales", "quats", "colors", "opacities"):
+        assert torch.equal(getattr(loaded, f), getattr(want_scene, f))

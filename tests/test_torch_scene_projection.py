@@ -165,3 +165,37 @@ def test_projection_fields_match(case):
             getattr(pt, field).numpy(), np.asarray(getattr(pj, field)),
             rtol=RTOL, atol=ATOL, err_msg=f"{case}: {field}",
         )
+
+
+def test_camera_from_three_matches_splatjax():
+    """THREE-style matrices with the viewer's Y flips: the same float64
+    host math, then f32 (bit-equal)."""
+    rng = np.random.default_rng(12)
+    cam_world = np.linalg.inv(jcam.look_at((0.4, -0.3, 2.2), (0, 0, 0)))
+    proj = jcam.perspective(55.0, W / H, 0.2, 50.0)
+    obj = np.eye(4, dtype=np.float32)
+    obj[:3, 3] = rng.normal(size=3)
+    for ow in (None, obj):
+        j = jcam.Camera.from_three(cam_world, proj, ow, width=W, height=H)
+        t = tcam.Camera.from_three(cam_world, proj, ow, width=W, height=H,
+                                   device="cpu")
+        assert (t.width, t.height) == (W, H)
+        np.testing.assert_array_equal(t.modelview.numpy(),
+                                      np.asarray(j.modelview))
+        np.testing.assert_array_equal(t.projection.numpy(),
+                                      np.asarray(j.projection))
+        assert float(t.focal) == pytest.approx(float(j.focal), rel=1e-7)
+
+
+def test_scene_normalized_matches_splatjax():
+    p = _params(64, seed=3)
+    p["quats"] = p["quats"] * np.random.default_rng(4).uniform(
+        0.5, 2.0, (64, 1)).astype(np.float32)
+    j = jscene.GaussianScene(**{k: jnp.asarray(v) for k, v in p.items()})
+    t = tscene.scene_from_numpy(p, "cpu")
+    tn, jn = t.normalized(), j.normalized()
+    np.testing.assert_allclose(tn.quats.numpy(), np.asarray(jn.quats),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(np.linalg.norm(tn.quats.numpy(), axis=-1),
+                               1.0, rtol=1e-6)
+    assert tn.means is t.means and t.quats is not tn.quats

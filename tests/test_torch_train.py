@@ -189,9 +189,7 @@ def test_fit_unported_options_raise_and_init_random():
     params = st.trainable_from_numpy(init, device="cpu")
     tg = [_t(x) for x in targets]
     cfg = tt.FitConfig(steps=1)
-    for kw in (dict(densify=object()), dict(checkpoint_dir="ck"),
-               dict(resume=True), dict(mesh=object()),
-               dict(band_axis="band")):
+    for kw in (dict(mesh=object()), dict(band_axis="band")):
         with pytest.raises(NotImplementedError):
             tt.fit(params, cams_t, tg, cfg, **kw)
     g = torch.Generator().manual_seed(3)
