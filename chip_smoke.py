@@ -88,7 +88,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         equal to ``save_ply`` of A's scene; the pass alone at 1M timed,
         device busy per step before and after the growth (K1, K2 16-byte,
         K4, K7);
-     capacity = the measured demand of both scenes + 3% (paths a-c), of
+     h. multi-card, on a one-rank NCCL group that ``init_distributed``
+        starts (a FileStore under ``build/``): ``render_sharded`` of the
+        serving scene under ``make_mesh(1)`` and ``make_mesh_2d((1, 1))``,
+        all_to_all and all_gather, load-balanced and equal bands, at
+        pair_capacity = N, each within 1e-4 of ``render()`` with overflow
+        0 (8 frames: exactly 8 K1 and 8 K2 launches), and the defaults'
+        frame once (pair_capacity 6N); ``fit(mesh=make_mesh(1))`` one step
+        within the gradient gate of ``make_train_step``'s; the (view,
+        band) step twice from one start, within the gate and compared
+        bit for bit; ``fit`` on ``make_mesh_2d((1, 1), ("view",
+        "band"))`` 6 steps: the loss falls, drops 0 (K1, K2 16-byte, K4,
+        K7); frame and step times, device busy beside ``render()``'s, the
+        share of NCCL kernels and device copies (at one rank NCCL copies
+        and launches no kernel), the collectives alone by CUDA events;
+     capacity = the measured demand of both scenes + 3% (paths a-c, h), of
      the base eye and the orbit + 3% (d, e), of the loaded scene + 3% (f),
      ``default_capacity`` of the row count (g); overflow == 0;
      frame, step, stage and kernel times, device busy time and idle share,
@@ -1855,6 +1869,283 @@ def check_grown(params, cam):
     return dict(expand=0.0, rasterize_bwd=k4_err, segreduce_bf16=k7_err)
 
 
+def collective_share(fn, calls: int = 5) -> tuple[float, float, float]:
+    """Device busy ms per call of ``fn`` from torch.profiler, and the ms of
+    it in NCCL kernels and in device-to-device copies (NCCL copies instead
+    of launching a kernel when a group has one rank)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+    def ms(keep):
+        return sum(e.self_device_time_total for e in kern
+                   if keep(e.key)) / 1e3 / calls
+
+    return (ms(lambda k: True), ms(lambda k: "nccl" in k.lower()),
+            ms(lambda k: "Memcpy DtoD" in k))
+
+
+def check_launches(launches, want, path):
+    """Exact launch counts of the kernels ``want`` names."""
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{path} launches {launches}, want {want}")
+
+
+def grad_gate(got, want, what):
+    """The gradient gate (atol GRAD_TOL x max, rtol GRAD_TOL) over every
+    leaf's gradient, leaves given as {name: tensor}; returns the max error
+    and whether the two are bit-equal."""
+    import torch
+
+    g = torch.cat([got[k].ravel() for k in LEAVES])
+    w = torch.cat([want[k].ravel() for k in LEAVES])
+    scale = float(w.abs().max())
+    err = (g - w).abs()
+    if not (bool(g.isfinite().all()) and scale > 0 and bool(
+            (err <= GRAD_TOL * scale + GRAD_TOL * w.abs()).all())):
+        raise AssertionError(f"{what}: gradient gate failed, max err "
+                             f"{float(err.max())} at scale {scale}")
+    return float(err.max()), bool(torch.equal(g, w))
+
+
+def dist_frames(scene, cam, capacity, smi):
+    """Path h, frames: ``render_sharded`` of the serving scene under
+    ``make_mesh(1)`` and ``make_mesh_2d((1, 1))``, both redistributions
+    and both band layouts, against ``render()``; the defaults' frame once;
+    frame and collective times. Returns the launches of the checked
+    frames."""
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.parallel import (
+        make_mesh, make_mesh_2d, render_sharded,
+    )
+    from splatjax_torch.parallel.dist_render import (
+        _default_pair_capacity, all_gather, all_to_all,
+    )
+    from splatjax_torch.parallel.mesh import mesh_group
+    from splatjax_torch.render import default_capacity, render
+
+    n = scene.num_gaussians
+    mesh = make_mesh(1)
+    meshes = (("make_mesh(1)", mesh, "dev"),
+              ("make_mesh_2d((1, 1))", make_mesh_2d((1, 1)),
+               ("host", "chip")))
+    with torch.no_grad():
+        ref = render(scene, cam, capacity=capacity)
+        pc_d = _default_pair_capacity(n, 1)
+        sync()
+        t0 = time.perf_counter()
+        img, ov = render_sharded(scene, cam, mesh, return_overflow=True)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[dist] defaults (pair_capacity {pc_d}, capacity "
+            f"{max(default_capacity(pc_d), 2048)}): first frame "
+            f"{first_ms:.1f} ms, overflow {ov.tolist()}, max |image - "
+            f"render()| {float((img - ref).abs().max()):.3g}; {smi}")
+        del img
+
+        kw = dict(pair_capacity=n, capacity=capacity, return_overflow=True)
+        sync()
+        kernels.reset_launches()
+        checked = []
+        for label, m, axis in meshes:
+            for red in ("all_to_all", "all_gather"):
+                for bal in ("load", "equal"):
+                    img, ov = render_sharded(scene, cam, m, axis=axis,
+                                             redistribute=red, balance=bal,
+                                             **kw)
+                    checked.append((f"{label} {red} {bal}", img, ov))
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        for what, img, ov in checked:
+            err = float((img - ref).abs().max())
+            check_frame(img, f"render_sharded {what}")
+            if int(ov.sum()) != 0 or not err <= 1e-4:
+                raise AssertionError(f"render_sharded {what}: overflow "
+                                     f"{ov.tolist()}, max err {err}")
+            log(f"[dist] render_sharded {what}: max |image - render()| "
+                f"{err:.3g}, bit-equal {torch.equal(img, ref)}, overflow "
+                f"{ov.tolist()}; {smi}")
+        del checked
+        n_frames = 2 * 2 * 2
+        check_launches(launches, dict(
+            expand=n_frames, rasterize_fwd=n_frames, rasterize_fwd16=0,
+            rasterize_bwd=0), "render_sharded")
+
+        def frame():
+            return render_sharded(scene, cam, mesh, **kw)
+
+        frame_ms = []
+        for _ in range(FRAMES):
+            sync()
+            t0 = time.perf_counter()
+            frame()
+            sync()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        median = statistics.median(frame_ms)
+        busy, nccl, dtod = collective_share(frame)
+        busy_r, _, dtod_r = collective_share(
+            lambda: render(scene, cam, capacity=capacity))
+        log(f"[dist] {FRAMES} render_sharded frames (make_mesh(1), "
+            f"all_to_all, load, pair_capacity {n}, capacity {capacity}): "
+            f"median {median:.3f} ms (all: "
+            f"{', '.join(f'{t:.3f}' for t in frame_ms)}); device busy "
+            f"{busy:.3f} ms against render()'s {busy_r:.3f} ms "
+            f"({busy / busy_r:.3f}x); NCCL kernels {nccl:.4f} ms, "
+            f"device-to-device copies {dtod:.4f} ms ({dtod / busy:.4f} of "
+            f"the busy time; render()'s {dtod_r:.4f} ms); {smi}")
+        log_profile(f"dist-profile frame, {smi}", *profile_calls(frame),
+                    median)
+        group = mesh_group(mesh)
+        send = torch.zeros((n, 13), device=scene.device)
+        tiles = torch.zeros((-(-cam.width // 16) * -(-cam.height // 16), 8,
+                             256), device=scene.device)
+        a2a = cuda_ms(lambda: all_to_all(send, group), 20)
+        ag = cuda_ms(lambda: all_gather(tiles, group), 20)
+        log(f"[dist] collectives by CUDA events, one rank: all_to_all of "
+            f"the ({n}, 13) f32 send buffer {a2a:.4f} ms "
+            f"({n * 52 / a2a / 1e6:.1f} GB/s), all_gather of the "
+            f"{tuple(tiles.shape)} f32 band tiles {ag:.4f} ms "
+            f"({tiles.numel() * 4 / ag / 1e6:.1f} GB/s); {smi}")
+    return launches
+
+
+def dist_steps(scene, cam, start, target, capacity, smi):
+    """Path h, steps: ``fit(mesh=make_mesh(1))`` for one step against
+    ``make_train_step``'s from the same start and view; the (view, band)
+    step twice from one start, against it and against itself;
+    ``fit(mesh=make_mesh_2d((1, 1), ("view", "band")), ...)`` for
+    TRAIN_STEPS steps. Returns the launches of the port's multi-card calls
+    (the one-card reference step runs before the counted window)."""
+    from splatjax_torch import kernels
+    from splatjax_torch.parallel import (
+        make_dp_band_train_step, make_mesh, make_mesh_2d,
+    )
+    from splatjax_torch.scene import TrainableGaussians
+    from splatjax_torch.train import FitConfig, fit, make_train_step
+    from splatjax_torch.train.fit import _optimizer
+
+    def fresh():
+        return TrainableGaussians(**{
+            k: None if getattr(start, k) is None
+            else getattr(start, k).detach().clone()
+            for k in TrainableGaussians.LEAVES})
+
+    def grads(p):
+        return {k: getattr(p, k).grad.detach().clone() for k in LEAVES}
+
+    def leaves(p):
+        return {k: getattr(p, k).detach().clone() for k in LEAVES}
+
+    def spread(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in LEAVES)
+
+    cfg = FitConfig(capacity=capacity)
+    one = fresh()
+    make_train_step([cam], cfg, capacity)(one, _optimizer(one, cfg),
+                                          cam.modelview, cam.projection,
+                                          target)
+    ref_g, ref_p = grads(one), leaves(one)
+    del one
+    mv, pr, tg = cam.modelview[None], cam.projection[None], target[None]
+    band_mesh = make_mesh_2d((1, 1), ("view", "band"))
+    band_step = make_dp_band_train_step([cam], cfg, band_mesh,
+                                        view_axis="view", band_axis="band",
+                                        capacity=capacity)
+
+    sync()
+    kernels.reset_launches()
+    dp, _ = fit(fresh(), [cam], [target],
+                FitConfig(steps=1, log_every=1, capacity=capacity),
+                mesh=make_mesh(1))
+    band = []
+    for _ in range(2):
+        p = fresh()
+        loss, _, _, drops = band_step(p, _optimizer(p, cfg), mv, pr, tg)
+        band.append((grads(p), leaves(p), int(drops)))
+    params, hist = fit(fresh(), [cam], [target],
+                       FitConfig(steps=TRAIN_STEPS, log_every=1,
+                                 capacity=capacity),
+                       mesh=band_mesh, dp_axis="view", band_axis="band")
+    sync()
+    launches = dict(kernels.LAUNCHES)
+
+    dp_err, dp_exact = grad_gate(grads(dp), ref_g, "fit(mesh=make_mesh(1))")
+    log(f"[dist] fit(mesh=make_mesh(1)), one step against make_train_step's: "
+        f"gradients max err {dp_err:.3g} (bit-equal {dp_exact}), parameters "
+        f"max |diff| {spread(leaves(dp), ref_p):.3g}; {smi}")
+    band_err, band_exact = grad_gate(band[0][0], ref_g, "band step")
+    twice = spread(band[0][0], band[1][0]) == 0.0 and \
+        spread(band[0][1], band[1][1]) == 0.0
+    if band[0][2] or band[1][2]:
+        raise AssertionError(f"band step dropped {band[0][2]} instances")
+    log(f"[dist] make_dp_band_train_step (1, 1), one step against "
+        f"make_train_step's: gradients max err {band_err:.3g} (bit-equal "
+        f"{band_exact}), parameters max |diff| "
+        f"{spread(band[0][1], ref_p):.3g}; two runs from one start "
+        f"bit-identical {twice} (gradients max |diff| "
+        f"{spread(band[0][0], band[1][0]):.3g}); {smi}")
+    losses = [h["loss"] for h in hist]
+    drops = [h["drops"] for h in hist]
+    if not (len(losses) == TRAIN_STEPS and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"band fit losses {losses}")
+    if any(drops):
+        raise AssertionError(f"band fit dropped instances: {drops}")
+    ends = [h["elapsed_s"] * 1e3 for h in hist]
+    step_ms = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
+    median = statistics.median(step_ms)
+    log(f"[dist] fit on the (view, band) mesh (1, 1), {TRAIN_STEPS} steps: "
+        f"loss {' -> '.join(f'{x:.5f}' for x in losses)}; drops {drops}; "
+        f"step median {median:.3f} ms (all: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)}); {smi}")
+    opt = _optimizer(params, cfg)
+
+    def step():
+        return band_step(params, opt, mv, pr, tg)
+
+    busy, nccl, dtod = collective_share(step, 3)
+    log(f"[dist] band step device busy {busy:.3f} ms; NCCL kernels "
+        f"{nccl:.4f} ms, device-to-device copies {dtod:.4f} ms "
+        f"({dtod / busy:.4f} of it); {smi}")
+    log_profile(f"dist-profile step, {smi}", *profile_calls(step, 3),
+                median)
+    return launches
+
+
+def dist_path(scene, cam, start, target, capacity, smi, workdir):
+    """Path h: the multi-card slice on a one-rank NCCL group started by
+    ``init_distributed`` (a FileStore under ``workdir``). Returns the
+    frames' and the steps' launches."""
+    import torch
+    import torch.distributed as dist
+    from splatjax_torch.parallel import init_distributed
+
+    t0 = time.perf_counter()
+    if not init_distributed("file://" + os.path.join(workdir, "store"), 1,
+                            0, device="cuda"):
+        raise AssertionError("init_distributed started no group")
+    try:
+        log(f"[dist] one-rank {dist.get_backend()} group in "
+            f"{time.perf_counter() - t0:.2f} s (torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}); {smi}")
+        frames = dist_frames(scene, cam, capacity, smi)
+        steps = dist_steps(scene, cam, start, target, capacity, smi)
+    finally:
+        dist.destroy_process_group()
+    return frames, steps
+
+
 def require(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
@@ -2007,10 +2298,15 @@ def main() -> int:
         require(launches_g, ("expand", "rasterize_fwd"), "asset")
         launches_h, grown = densify_path(noisy_start(scene), cam, target,
                                          workdir)
+        launches_i, launches_j = dist_path(scene, cam, noisy_start(scene),
+                                           target, capacity, smi, workdir)
     require(launches_h, ("expand", "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "densify + checkpoint")
+    require(launches_j, ("expand", "rasterize_fwd16", "rasterize_bwd",
+                         "segreduce_bf16"), "multi-card steps")
     log(f"[launches] asset: {launches_g}; densify + checkpoint: "
-        f"{launches_h}")
+        f"{launches_h}; sharded frames: {launches_i}; multi-card steps: "
+        f"{launches_j}")
     k1["max_abs_err"] = max(k1["max_abs_err"], grown["expand"])
     k4["max_abs_err"] = max(k4["max_abs_err"], grown["rasterize_bwd"])
     seg["segreduce_bf16"]["max_abs_err"] = max(
@@ -2020,7 +2316,8 @@ def main() -> int:
     log(smi)
     total = {n: sum(launches[n] for launches in (
         launches_a, launches_b, launches_c, launches_d, launches_e,
-        launches_f, launches_g, launches_h)) for n in launches_a}
+        launches_f, launches_g, launches_h, launches_i, launches_j))
+        for n in launches_a}
     csrc = "splatjax_torch/csrc/"
     table = [
         dict(name="expand_instances", route="cuda",

@@ -8,6 +8,7 @@ from splatjax_torch.train.fit import (
     FitConfig,
     fit,
     init_random,
+    make_dp_train_step,
     make_train_step,
 )
 from splatjax_torch.train.loss import combined_loss, l1, psnr, ssim
@@ -23,6 +24,7 @@ __all__ = [
     "fit",
     "init_random",
     "l1",
+    "make_dp_train_step",
     "make_train_step",
     "psnr",
     "ssim",

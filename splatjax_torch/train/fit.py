@@ -1,12 +1,12 @@
 """Fit-from-scratch training loop: Adam over all Gaussian parameters
-(PyTorch port of ``splatjax/train/fit.py``, one device).
+(PyTorch port of ``splatjax/train/fit.py``).
 
 Optimizes means / scales / rotations / opacities / colors (and SH) against
 target images through the differentiable tiled renderer, with per-leaf
 learning rates as in standard 3DGS practice, adaptive density control
-(:mod:`.densify`) and checkpoint/resume (:mod:`.checkpoint`). Not ported
-yet: multi-device steps (``mesh=``, ``band_axis=``), which raise
-``NotImplementedError``.
+(:mod:`.densify`) and checkpoint/resume (:mod:`.checkpoint`), on one card
+or over a ``torch.distributed`` mesh (:func:`make_dp_train_step`, and
+:mod:`splatjax_torch.parallel.dist_train` for view x band meshes).
 """
 from __future__ import annotations
 
@@ -16,9 +16,16 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
+from splatjax_torch.parallel.dist_render import all_reduce
+from splatjax_torch.parallel.mesh import (
+    axis_group,
+    mesh_axis_size,
+    mesh_group,
+)
 from splatjax_torch.render import default_capacity, render
 from splatjax_torch.scene import GaussianScene, TrainableGaussians
 from splatjax_torch.train.checkpoint import CheckpointManager
@@ -108,6 +115,56 @@ def make_train_step(cameras: Sequence[Camera], cfg: FitConfig,
     return step_multi
 
 
+def make_dp_train_step(cameras: Sequence[Camera], cfg: FitConfig,
+                       capacity: int, mesh, axis="dev") -> Callable:
+    """Data-parallel step over ``mesh``'s ``axis`` (a name or a tuple of
+    names): parameters replicated, one view per rank, gradients summed over
+    the ranks in one all_reduce and averaged before Adam, so a B-view step
+    equals a one-card step on the mean loss of those B views.
+
+    Build ``step(params, opt, mvs, prs, targets) -> (loss, psnr, gnorm)``;
+    every rank passes the same stacked (B, 4, 4) matrices and (B, H, W, 4)
+    targets, B the axis size, renders view ``index along the axis`` and
+    updates ``params`` in place, identically on every rank. loss/psnr are
+    the views' means, gnorm the (N,) norm of the means' mean gradient.
+    With ``cfg.steps_per_call = k > 1`` it takes (k, B, ...) stacks and
+    runs k steps in order, returning the last loss/psnr and the summed
+    gnorm."""
+    from splatjax_torch.parallel.dist_train import reduce_gradients
+
+    w, h = cameras[0].width, cameras[0].height
+    ag = axis_group(mesh, axis)
+
+    def one_step(params, opt, mvs, prs, targets):
+        j = ag.index
+        cam = Camera(modelview=mvs[j], projection=prs[j], width=w, height=h)
+        opt.zero_grad(set_to_none=True)
+        img = render(params.to_scene(), cam, capacity=capacity,
+                     alpha_clip=cfg.alpha_clip, early_stop=cfg.early_stop,
+                     feature_bytes=cfg.feature_bytes)
+        loss = combined_loss(img, targets[j], ssim_weight=cfg.ssim_weight)
+        loss.backward()
+        reduce_gradients(params, ag.group, ag.size)
+        opt.step()
+        with torch.no_grad():
+            stats = all_reduce(torch.stack([loss.detach(),
+                                            psnr(img, targets[j])]),
+                               ag.group) / ag.size
+            return stats[0], stats[1], params.means.grad.norm(dim=-1)
+
+    if cfg.steps_per_call <= 1:
+        return one_step
+
+    def step_multi(params, opt, mvs, prs, targets):
+        gnorm = None
+        for t in range(mvs.shape[0]):
+            loss, p, gn = one_step(params, opt, mvs[t], prs[t], targets[t])
+            gnorm = gn if gnorm is None else gnorm + gn
+        return loss, p, gnorm
+
+    return step_multi
+
+
 def fit(
     initial: TrainableGaussians | GaussianScene,
     cameras: Sequence[Camera],
@@ -122,6 +179,7 @@ def fit(
     densify_seed: int = 0,
     log_fn: Optional[Callable[[dict], None]] = None,
     mesh=None,
+    dp_axis="dev",
     band_axis: Optional[str] = None,
 ):
     """Optimize gaussians to match target images on the parameters' device.
@@ -148,11 +206,20 @@ def fit(
     (:func:`densify_and_prune`, children drawn from
     ``np.random.default_rng(densify_seed)``); when the row count changes,
     the step is rebuilt for ``cfg.capacity`` or, without one,
-    ``default_capacity`` of the new count."""
-    for name, value in (("mesh", mesh), ("band_axis", band_axis)):
-        if value is not None:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet; see ROADMAP.md")
+    ``default_capacity`` of the new count.
+
+    Multi-card (every rank of the mesh calls ``fit`` with the same
+    arguments and returns the same parameters and history):
+      * ``mesh=make_mesh(...)``: data parallelism over ``dp_axis``,
+        parameters replicated, one view per rank (:func:`make_dp_train_step`);
+      * ``mesh=make_mesh_2d((v, b), ("view", "band")), dp_axis="view",
+        band_axis="band"``: views over ``dp_axis``, the gaussians sharded
+        over ``band_axis`` (``parallel.make_dp_band_train_step``); the row
+        count must divide the band size, and each record holds ``drops``,
+        the instances lost to capacity that step.
+    Step i takes views ``((i + t) * n_dp + j) % len(cameras)``, j the
+    rank's index along ``dp_axis``. The mesh's first rank writes the
+    checkpoints and runs ``checkpoint_fn``; every rank waits for it."""
     if isinstance(initial, GaussianScene):
         params = TrainableGaussians.from_scene(initial)
     else:
@@ -165,9 +232,29 @@ def fit(
             "clone/split/prune pass needs per-step python control); set "
             "steps_per_call=1 or drop densify")
 
+    n_dp = 1 if mesh is None else mesh_axis_size(mesh, dp_axis)
+    group = None if mesh is None else mesh_group(mesh)
+    lead = group is None or dist.get_rank(group) == 0
+
     def build_step(n):
-        return make_train_step(cameras, cfg,
-                               cfg.capacity or default_capacity(n))
+        capacity = cfg.capacity or default_capacity(n)
+        if mesh is not None and band_axis is not None:
+            from splatjax_torch.parallel.dist_train import (
+                make_dp_band_train_step,
+            )
+
+            d_band = mesh_axis_size(mesh, band_axis)
+            if n % d_band:
+                raise ValueError(
+                    f"gaussian count {n} must divide the band-axis size "
+                    f"{d_band} (pad the scene or pick a bucket-aligned N)")
+            return make_dp_band_train_step(
+                cameras, cfg, mesh, view_axis=dp_axis, band_axis=band_axis,
+                capacity=cfg.capacity, steps_per_call=k)
+        if mesh is not None:
+            return make_dp_train_step(cameras, cfg, capacity, mesh,
+                                      axis=dp_axis)
+        return make_train_step(cameras, cfg, capacity)
 
     opt = _optimizer(params, cfg)
     n_rows = params.num_gaussians
@@ -205,10 +292,24 @@ def fit(
         raise ValueError(f"steps ({cfg.steps}, resuming at {start_step}) "
                          f"must be a multiple of steps_per_call ({k})")
     history = []
+    drops = None
     t_start = time.time()
     for i in range(start_step, cfg.steps, k):
         vis = [(i + j) % len(cameras) for j in range(k)]
-        if k > 1:
+        if mesh is not None:
+            def batch(src):
+                per_step = [torch.stack([
+                    src[((i + t) * n_dp + j) % len(cameras)]
+                    for j in range(n_dp)]) for t in range(k)]
+                return per_step[0] if k == 1 else torch.stack(per_step)
+
+            out = step_fn(params, opt, batch(mvs), batch(prs),
+                          batch(targets))
+            if band_axis is not None:
+                loss, p, gnorm, drops = out
+            else:
+                loss, p, gnorm = out
+        elif k > 1:
             loss, p, gnorm = step_fn(
                 params, opt,
                 torch.stack([mvs[v] for v in vis]),
@@ -241,6 +342,8 @@ def fit(
                 "psnr": float(p),
                 "elapsed_s": time.time() - t_start,
             }
+            if drops is not None:
+                rec["drops"] = int(drops)
             history.append(rec)
             if log_fn is not None:
                 log_fn(rec)
@@ -253,8 +356,11 @@ def fit(
                          "grad_sum": grad_sum.cpu(),
                          "grad_cnt": grad_cnt.cpu(),
                          "rng": dense_rng.bit_generator.state}
-            mgr.save(done, params, opt, extra)
-        if checkpoint_fn is not None and checkpoint_every and (
+            if lead:
+                mgr.save(done, params, opt, extra)
+            if group is not None:
+                dist.barrier(group=group)
+        if lead and checkpoint_fn is not None and checkpoint_every and (
                 done % checkpoint_every < k):
             checkpoint_fn(done, params)
     return params, history

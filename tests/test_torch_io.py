@@ -64,10 +64,14 @@ def test_synthetic_and_tile_scene_bit_equal():
 
 
 def test_port_imports_no_jax():
-    """Every splatjax_torch module imports with jax and splatjax blocked."""
+    """Every splatjax_torch module, the multi-card ones included, imports
+    with jax and splatjax blocked."""
     names = [m.name for m in pkgutil.walk_packages(
         splatjax_torch.__path__, "splatjax_torch.")]
     assert "splatjax_torch.ops.rasterize" in names
+    assert {"splatjax_torch.parallel", "splatjax_torch.parallel.mesh",
+            "splatjax_torch.parallel.dist_render",
+            "splatjax_torch.parallel.dist_train"} <= set(names)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -184,14 +184,9 @@ def test_train_step_and_steps_per_call():
     assert torch.isfinite(gnorm).all()
 
 
-def test_fit_unported_options_raise_and_init_random():
+def test_init_random_and_scene_start():
     init, _, cams_t, targets = _fit_setup()
-    params = st.trainable_from_numpy(init, device="cpu")
     tg = [_t(x) for x in targets]
-    cfg = tt.FitConfig(steps=1)
-    for kw in (dict(mesh=object()), dict(band_axis="band")):
-        with pytest.raises(NotImplementedError):
-            tt.fit(params, cams_t, tg, cfg, **kw)
     g = torch.Generator().manual_seed(3)
     r = tt.init_random(64, g, extent=0.5, initial_scale=0.08, device="cpu")
     assert r.means.shape == (64, 3)
