@@ -102,9 +102,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         K7); frame and step times, device busy beside ``render()``'s, the
         share of NCCL kernels and device copies (at one rank NCCL copies
         and launches no kernel), the collectives alone by CUDA events;
+     i. tooling and examples, in the same ``build/`` directory after path
+        f: the viewer-oracle gate (K1, K2: ``render(viewer_exact=True,
+        early_stop=0)`` of test_reference_rasterizer.py's 40-splat scene
+        and its 60-splat cutout scene, parsed from .splat bytes, 48x32,
+        within PARITY_TOL of ``reference.viewer_math.viewer_render``, the
+        scalar WebGL-viewer pipeline); ``tools.make_fixture`` at its
+        defaults with tests/test_fixture.py's checks on the files it
+        writes; ``examples.fit_trained_fixture`` at its defaults, held-out
+        PSNR (min of 2 views) >= 25 dB, loss falling, one step profiled at
+        the final rows; the demos at their defaults, demo_render /
+        demo_orbit / demo_stereo / demo_cutout on path f's .splat
+        (demo_render bit-equal to ``render()``, demo_orbit exactly 24 K3,
+        3 K1 and no K2, the clipped frame unlike the full one,
+        demo_train's held-out PSNR above its start), every PNG decoded
+        back to its frame (K1, K2, K2 16-byte, K3, K4, K7);
      capacity = the measured demand of both scenes + 3% (paths a-c, h), of
      the base eye and the orbit + 3% (d, e), of the loaded scene + 3% (f),
-     ``default_capacity`` of the row count (g); overflow == 0;
+     ``default_capacity`` of the row count (g); overflow == 0 (path i
+     runs the entry points at their own default capacity and reads no
+     overflow);
      frame, step, stage and kernel times, device busy time and idle share,
      radix-sort and row-gather kernels per call.
 Then one line with the card's name and power limit, one JSON line with the
@@ -240,25 +257,45 @@ def kernel_ms(fn, reps: int, entry: tuple[str, str], tries: int = 3
     raise AssertionError(f"{tries} timings of {entry[1]} outran their wait")
 
 
+def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
+                   tries: int = 3) -> list:
+    """The device-side kernel records (torch.profiler ``key_averages``) of
+    a trace of ``calls`` calls of ``fn``, after one warm-up call; with
+    ``cpu`` the host's activity is traced too. torch.profiler can return
+    a trace that lacks kernels the calls ran (dropped CUPTI records), so
+    a trace with no kernel record whose name holds ``want`` is taken
+    again, at most ``tries`` times, and then the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    fn()
+    sync()
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            sync()
+        # device-side kernels only: a user annotation
+        # (Optimizer.step#Adam.step) spans kernels counted on their own
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if any(want in e.key for e in kern):
+            return kern
+        log(f"[timing] a profiler trace held {len(kern)} kernel records, "
+            f"none named {want!r}; tracing again")
+    raise AssertionError(f"no {want!r} kernel records in {tries} profiler "
+                         "traces")
+
+
 def profiler_kernel_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
     """Mean device time of the records of the kernels whose name holds
     ``kernel`` in a torch.profiler trace of ``reps`` calls of ``fn`` (no
     events around the launches), and how many records the trace held."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    recs = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
+    recs = [e for e in traced_kernels(fn, reps, cpu=False, want=kernel)
+            if kernel in e.key]
     n = sum(e.count for e in recs)
-    if n == 0:
-        raise AssertionError(f"no {kernel} records in the profiler trace")
     return sum(e.self_device_time_total for e in recs) / n / 1e3, n
 
 
@@ -1275,21 +1312,7 @@ def train_stage_times(params, cam, target, capacity, cfg):
 def profile_calls(fn, calls: int = 5):
     """Device busy time per call and the kernels that take it, from
     torch.profiler over ``calls`` calls of ``fn``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
-    # device-side kernels only: a user annotation (Optimizer.step#Adam.step)
-    # spans kernels that are counted on their own
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    kern = traced_kernels(fn, calls)
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
     launches = sum(e.count for e in kern) / calls
@@ -1873,19 +1896,7 @@ def collective_share(fn, calls: int = 5) -> tuple[float, float, float]:
     """Device busy ms per call of ``fn`` from torch.profiler, and the ms of
     it in NCCL kernels and in device-to-device copies (NCCL copies instead
     of launching a kernel when a group has one rank)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    kern = traced_kernels(fn, calls)
 
     def ms(keep):
         return sum(e.self_device_time_total for e in kern
@@ -2146,6 +2157,392 @@ def dist_path(scene, cam, start, target, capacity, smi, workdir):
     return frames, steps
 
 
+# -- path i: tooling and examples ---------------------------------------------
+
+ORACLE_W, ORACLE_H = 48, 32
+ORACLE_CASES = (   # tests/test_reference_rasterizer.py's scenes
+    ("plain", 40, 12, (0.03, 0.12), None),
+    ("cutout", 60, 13, (0.03, 0.1), (0.1, 0.0, 0.0)),
+)
+FIXTURE_CAM = ((1.4, 0.9, 1.4), 128, 96)   # tests/test_fixture.py's view
+FIT_BAR_DB = 25.0     # fit_trained_fixture's held-out bar (min of 2 views)
+SPLATJAX_FIT = "32.4 / 50.19 dB held-out min / train mean, 9235 live"
+
+
+def png_pixels(path):
+    """Decode an 8-bit PNG written with filter byte 0 (what
+    ``splatjax_torch.utils.png`` writes) to (H, W, C) uint8, with zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    i, chunks = 8, {}
+    while i < len(data):
+        (n,) = struct.unpack(">I", data[i:i + 4])
+        chunks[data[i + 4:i + 8]] = data[i + 8:i + 8 + n]
+        i += 12 + n
+    w, h, depth, ct = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    c = {0: 1, 2: 3, 6: 4}[ct]
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + w * c)
+    if depth != 8 or (rows[:, 0] != 0).any():
+        raise AssertionError(f"{path}: not 8-bit rows with filter 0")
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def check_png(path, frame, what):
+    """The PNG at ``path`` decodes to ``to_u8(frame)``."""
+    import numpy as np
+    from splatjax_torch.utils.png import to_u8
+
+    if not np.array_equal(png_pixels(path), to_u8(frame)):
+        raise AssertionError(f"{what}: {path} does not decode to its frame")
+
+
+def median_step_ms(history):
+    """Median over fit's logging intervals of the mean step time in each
+    (host clock; each record ends in a sync; densify passes included)."""
+    recs = [h for h in history if "loss" in h]
+    return statistics.median(
+        (b["elapsed_s"] - a["elapsed_s"]) / (b["step"] - a["step"]) * 1e3
+        for a, b in zip(recs, recs[1:]) if b["step"] > a["step"])
+
+
+def loss_falls(history, what):
+    losses = [h["loss"] for h in history if "loss" in h]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    return losses[0], losses[-1]
+
+
+def viewer_oracle_gate():
+    """Path i.1: K1 and K2 against the scalar WebGL-viewer pipeline of
+    ``splatjax_torch.reference.viewer_math`` (the worker's cull and
+    counting sort, the vertex and fragment shaders, GL's back-to-front
+    blending) on test_reference_rasterizer.py's scenes, written as .splat
+    bytes and parsed back, at 48x32 from (0, 0, 2.5): ``render(...,
+    viewer_exact=True, early_stop=0.0)`` within PARITY_TOL on RGBA, plain
+    and with a cutout box the worker must cull alike. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from splatjax_torch import kernels, make_camera
+    from splatjax_torch.io import (
+        parse_splat_bytes,
+        scene_to_splat_bytes,
+        synthetic_scene,
+    )
+    from splatjax_torch.reference import viewer_math as vm
+    from splatjax_torch.render import render
+
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    images = {}
+    for name, n, seed, scale_range, shift in ORACLE_CASES:
+        src = synthetic_scene(n, seed=seed, extent=0.6,
+                              scale_range=scale_range, device="cpu")
+        raw = np.frombuffer(scene_to_splat_bytes(src), np.uint8).reshape(
+            n, 32)
+        scene = parse_splat_bytes(raw.tobytes(), device="cuda")
+        cam = make_camera((0.0, 0.0, 2.5), (0.0, 0.0, 0.0), width=ORACLE_W,
+                          height=ORACLE_H)
+        mv = cam.modelview.cpu().numpy()
+        pr = cam.projection.cpu().numpy()
+        box = None
+        if shift is not None:
+            box_world = np.eye(4, dtype=np.float32)
+            box_world[:3, 3] = shift
+            box = np.linalg.inv(box_world).astype(np.float32)
+        t0 = time.perf_counter()
+        want = vm.viewer_render(raw, mv, pr, ORACLE_W, ORACLE_H, cutout=box)
+        oracle_s = time.perf_counter() - t0
+        sync()
+        kernels.reset_launches()
+        img = render(scene, cam, viewer_exact=True, early_stop=0.0,
+                     cutout=None if box is None else torch.from_numpy(
+                         box).to(scene.device))
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        require(launches, ("expand", "rasterize_fwd"), f"oracle {name}")
+        err = float(np.abs(img.cpu().numpy() - want).max())
+        if not err < PARITY_TOL:
+            raise AssertionError(f"oracle {name}: max |err| {err} against "
+                                 f"the viewer pipeline")
+        extra = ""
+        if box is None:
+            if not want[..., 3].max() > 0.2:
+                raise AssertionError("oracle scene covers no pixel")
+        else:
+            buf = vm.push_data_buffer_math(raw)
+            kept = len(vm.worker_sort_cull(buf["centers"],
+                                           buf["sort_metric"], mv, box))
+            if not kept < n:
+                raise AssertionError(f"the cutout culled nothing ({kept})")
+            moved = float(np.abs(want - images["plain"]).max())
+            if not moved > PARITY_TOL:
+                raise AssertionError("the cutout image equals the full one")
+            extra = (f"; the worker keeps {kept} of {n}, the cutout moves "
+                     f"the oracle by {moved:.3g}")
+        images[name] = want
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[oracle] {name}: {n} splats {ORACLE_W}x{ORACLE_H}, CUDA render "
+            f"vs the scalar viewer pipeline max |err| {err:.3g} "
+            f"(< {PARITY_TOL}), oracle alpha max "
+            f"{float(want[..., 3].max()):.3f}{extra}; oracle {oracle_s:.2f} s "
+            f"on the host; launches K1 {launches['expand']}, K2 "
+            f"{launches['rasterize_fwd']}")
+    return total
+
+
+def fixture_path(workdir):
+    """Path i.2: ``tools.make_fixture`` at its defaults (1200 steps, 96x96,
+    10 views, 512 random gaussians, densify up to 6000) into ``workdir``,
+    then tests/test_fixture.py's checks on the card. Returns the
+    launches."""
+    import torch
+    from splatjax_torch import kernels, make_camera
+    from splatjax_torch.io import load_ply, load_splat, save_splat
+    from splatjax_torch.render import render
+    from splatjax_torch.tools import make_fixture
+
+    out = os.path.join(workdir, "fixture")
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = make_fixture.main(["--out", out])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches, ("expand", "rasterize_fwd16", "rasterize_bwd",
+                       "segreduce_bf16"), "make_fixture")
+    first, last = loss_falls(res["history"], "make_fixture")
+
+    eye, w, h = FIXTURE_CAM
+    cam = make_camera(eye, (0, 0, 0), width=w, height=h)
+    spl = load_splat(res["splat"])
+    ply = load_ply(res["ply"])
+    if not (spl.num_gaussians > 500 and ply.num_gaussians
+            == spl.num_gaussians == res["rows"]):
+        raise AssertionError(f"fixture rows: .splat {spl.num_gaussians}, "
+                             f".ply {ply.num_gaussians}, {res['rows']}")
+    with torch.no_grad():
+        img = render(spl, cam, early_stop=0.0)
+        img_ply = render(ply, cam, early_stop=0.0)
+        alpha = img[..., 3]
+        if not (bool(img.isfinite().all()) and float(alpha.mean()) > 0.08
+                and float(alpha.max()) > 0.9):
+            raise AssertionError(f"fixture render: mean alpha "
+                                 f"{float(alpha.mean())}, max "
+                                 f"{float(alpha.max())}")
+        gap = (img_ply - img).abs()
+        if not (float(gap.max()) < 0.05 and float(gap.mean()) < 0.005):
+            raise AssertionError(f".ply vs .splat: max {float(gap.max())}, "
+                                 f"mean {float(gap.mean())}")
+        p1 = os.path.join(out, "rt1.splat")
+        p2 = os.path.join(out, "rt2.splat")
+        save_splat(p1, spl)
+        save_splat(p2, load_splat(p1))
+        with open(p1, "rb") as f1, open(p2, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("the .splat is no fixed point after "
+                                     "its second load/save pass")
+        rt = (render(load_splat(p1), cam, early_stop=0.0) - img).abs()
+        if not (float(rt.max()) <= 2e-2 and float(rt.mean()) < 1e-4):
+            raise AssertionError(f"one load/save pass moved the render: max "
+                                 f"{float(rt.max())}, mean "
+                                 f"{float(rt.mean())}")
+    log(f"[fixture] make_fixture defaults: {res['rows']} rows frozen, final "
+        f"PSNR {res['psnr']:.3f} dB (view 0), loss {first:.4f} -> "
+        f"{last:.4f}; wall {wall:.2f} s (fit {res['wall_s']:.2f} s), median "
+        f"step {median_step_ms(res['history']):.3f} ms")
+    log(f"[fixture] test_fixture.py's checks on the card: {res['rows']} > "
+        f"500 rows; alpha mean {float(alpha.mean()):.4f} > 0.08, max "
+        f"{float(alpha.max()):.4f} > 0.9 at {w}x{h}; .ply vs .splat max "
+        f"{float(gap.max()):.4g} < 0.05, mean {float(gap.mean()):.3g} < "
+        f"0.005; .splat fixed point after the second pass, first pass "
+        f"moved the render by {float(rt.max()):.3g}; launches {launches}")
+    return launches
+
+
+def fit_fixture_path(workdir, smi):
+    """Path i.3: ``examples.fit_trained_fixture`` at its defaults (3000
+    steps, 256x256, 12 views, 4096 random gaussians, its DensifyConfig);
+    the held-out bar (min of 2 views >= FIT_BAR_DB) and a falling loss.
+    Returns the launches."""
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.examples import fit_trained_fixture
+    from splatjax_torch.render import default_capacity
+    from splatjax_torch.train import FitConfig, make_train_step
+    from splatjax_torch.train.fit import _optimizer
+
+    out = os.path.join(workdir, "artifacts")
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fit_trained_fixture.main(["--out-dir", out])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches, ("expand", "rasterize_fwd16", "rasterize_bwd",
+                       "segreduce_bf16"), "fit_trained_fixture")
+    first, last = loss_falls(res["history"], "fit_trained_fixture")
+    held = min(res["held_psnrs"])
+    if not held >= FIT_BAR_DB:
+        raise AssertionError(f"fit_trained_fixture: held-out PSNR "
+                             f"{res['held_psnrs']} under {FIT_BAR_DB} dB")
+    for (tp, rp), tgt, img in zip(res["png_paths"], res["held_targets"],
+                                  res["held_images"]):
+        check_png(tp, tgt[..., :3], "fit_trained_fixture target")
+        check_png(rp, img[..., :3], "fit_trained_fixture recon")
+    step_ms = median_step_ms(res["history"])
+    log(f"[fit-fixture] {res['steps']} steps {res['resolution']}, "
+        f"{res['views']} views, {res['init_gaussians']} random gaussians: "
+        f"held-out PSNR {', '.join(f'{p:.3f}' for p in res['held_psnrs'])} "
+        f"dB (min {held:.3f} >= {FIT_BAR_DB}), train-view mean "
+        f"{sum(res['train_psnrs']) / len(res['train_psnrs']):.3f} dB (min "
+        f"{min(res['train_psnrs']):.3f}), {res['final_live_gaussians']} live "
+        f"of {res['params'].num_gaussians} rows; loss {first:.4f} -> "
+        f"{last:.4f}; fit {res['wall_s']:.2f} s, main {wall:.2f} s, median "
+        f"step {step_ms:.3f} ms; splatjax's run: {SPLATJAX_FIT}; "
+        f"record device {res['device']!r}")
+
+    # device busy of one step at the final row count, the held-out view
+    params = res["params"]
+    cfg = FitConfig()
+    cam = res["held_cameras"][0]
+    target = torch.from_numpy(res["held_targets"][0]).to(params.means.device)
+    step = make_train_step([cam], cfg,
+                           default_capacity(params.num_gaussians))
+    opt = _optimizer(params, cfg)
+    log_profile("fit-fixture-profile", *profile_calls(
+        lambda: step(params, opt, cam.modelview, cam.projection, target), 5),
+        step_ms)
+    log(f"[fit-fixture] launches {launches}; {smi}")
+    return launches
+
+
+def demos_path(splat, workdir, smi):
+    """Path i.4: the demos at their defaults, demo_render / orbit / stereo
+    / cutout on path f's 1M-splat .splat, demo_depth_interaction and
+    demo_train on their own scenes; every PNG decodes to its frame.
+    Returns the launches of each demo."""
+    import numpy as np
+    import torch
+    from splatjax_torch import kernels
+    from splatjax_torch.examples import (
+        demo_cutout,
+        demo_depth_interaction,
+        demo_orbit,
+        demo_render,
+        demo_stereo,
+        demo_train,
+    )
+    from splatjax_torch.io import load_splat
+    from splatjax_torch.render import render
+
+    def run(mod, argv):
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        sync()
+        return res, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+    launches = {}
+    res, launches["demo_render"], s = run(
+        demo_render, [splat, "--out", os.path.join(workdir, "render")])
+    require(launches["demo_render"], ("expand", "rasterize_fwd"),
+            "demo_render")
+    scene = load_splat(splat)
+    with torch.no_grad():
+        for i, (frame, cam, path) in enumerate(zip(
+                res["frames"], res["cameras"], res["paths"])):
+            check_png(path, frame, "demo_render")
+            if not np.array_equal(frame, render(scene, cam).cpu().numpy()):
+                raise AssertionError(f"demo_render frame {i} differs from "
+                                     "render() at its camera")
+    del scene
+    log(f"[demo] demo_render: {len(res['frames'])} frames "
+        f"{res['frames'][0].shape[1]}x{res['frames'][0].shape[0]} of "
+        f"{res['gaussians']} splats, bit-equal to render(); frame ms "
+        f"(render + readback) {', '.join(f'{t:.3f}' for t in res['frame_ms'])}"
+        f", median {statistics.median(res['frame_ms']):.3f}; main {s:.2f} s")
+
+    res, launches["demo_orbit"], s = run(
+        demo_orbit, [splat, "--out", os.path.join(workdir, "orbit.png")])
+    check_launches(launches["demo_orbit"], dict(
+        rasterize_cached=24, expand=3, rasterize_fwd=0, rasterize_fwd16=0),
+        "demo_orbit")
+    check_png(res["path"], res["strip"], "demo_orbit")
+    h, w = res["frames"][0].shape[:2]
+    log(f"[demo] demo_orbit: 24 frames {w}x{h}, resort_interval 8: "
+        f"{res['fps']:.2f} fps over frames 1-23 (render + readback); frame "
+        f"ms median {statistics.median(res['frame_ms'][1:]):.3f}, frame 0 "
+        f"{res['frame_ms'][0]:.3f}; launches K3 24, K1 3, K2 0; main "
+        f"{s:.2f} s")
+
+    res, launches["demo_stereo"], s = run(
+        demo_stereo, [splat, "--out", os.path.join(workdir, "stereo.png")])
+    require(launches["demo_stereo"], ("expand", "rasterize_fwd"),
+            "demo_stereo")
+    check_png(res["path"], res["pair"], "demo_stereo")
+    log(f"[demo] demo_stereo: eye pair {res['left'].shape[1]}x"
+        f"{res['left'].shape[0]} in {res['ms']:.3f} ms; main {s:.2f} s")
+
+    res, launches["demo_cutout"], s = run(demo_cutout, [splat])
+    require(launches["demo_cutout"], ("expand", "rasterize_fwd"),
+            "demo_cutout")
+    check_png(res["path"], res["side"], "demo_cutout")
+    if not float(np.abs(res["full"] - res["clipped"]).max()) > 0:
+        raise AssertionError("demo_cutout: clipped frame equals the full one")
+    log(f"[demo] demo_cutout: kept {res['kept']:.4f} of the covered pixels, "
+        f"both frames in {res['ms']:.3f} ms; main {s:.2f} s")
+
+    res, launches["demo_depth_interaction"], s = run(
+        demo_depth_interaction, ["--out", os.path.join(workdir, "depth")])
+    require(launches["demo_depth_interaction"], ("expand", "rasterize_fwd"),
+            "demo_depth_interaction")
+    for frame, path in zip(res["frames"], res["paths"]):
+        check_png(path, frame, "demo_depth_interaction")
+    log(f"[demo] demo_depth_interaction: {len(res['frames'])} frames, ms "
+        f"{', '.join(f'{t:.3f}' for t in res['frame_ms'])}; main {s:.2f} s")
+
+    res, launches["demo_train"], s = run(
+        demo_train, ["--out", os.path.join(workdir, "fit.splat")])
+    require(launches["demo_train"], ("expand", "rasterize_fwd16",
+                                     "rasterize_bwd", "segreduce_bf16"),
+            "demo_train")
+    first, last = loss_falls(res["history"], "demo_train")
+    if not res["held_psnr"] > res["held_psnr_start"]:
+        raise AssertionError(f"demo_train: held-out PSNR "
+                             f"{res['held_psnr']} <= {res['held_psnr_start']}")
+    log(f"[demo] demo_train: 600 steps in {res['wall_s']:.2f} s, median step "
+        f"{median_step_ms(res['history']):.3f} ms; held-out PSNR "
+        f"{res['held_psnr_start']:.3f} -> {res['held_psnr']:.3f} dB, loss "
+        f"{first:.4f} -> {last:.4f}; main {s:.2f} s")
+    log(f"[demo] launches {launches}; {smi}")
+    return launches
+
+
+def tooling_path(workdir, smi):
+    """Path i: the viewer-oracle gate, make_fixture, fit_trained_fixture
+    and the demos, through the port's entry points. Returns every phase's
+    launches."""
+    t0 = time.perf_counter()
+    phases = [viewer_oracle_gate(), fixture_path(workdir),
+              fit_fixture_path(workdir, smi)]
+    phases += demos_path(os.path.join(workdir, "scene.splat"), workdir,
+                         smi).values()
+    log(f"[tooling] path i in {time.perf_counter() - t0:.1f} s")
+    return phases
+
+
 def require(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
@@ -2300,6 +2697,7 @@ def main() -> int:
                                          workdir)
         launches_i, launches_j = dist_path(scene, cam, noisy_start(scene),
                                            target, capacity, smi, workdir)
+        launches_tooling = tooling_path(workdir, smi)
     require(launches_h, ("expand", "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "densify + checkpoint")
     require(launches_j, ("expand", "rasterize_fwd16", "rasterize_bwd",
@@ -2316,7 +2714,8 @@ def main() -> int:
     log(smi)
     total = {n: sum(launches[n] for launches in (
         launches_a, launches_b, launches_c, launches_d, launches_e,
-        launches_f, launches_g, launches_h, launches_i, launches_j))
+        launches_f, launches_g, launches_h, launches_i, launches_j,
+        *launches_tooling))
         for n in launches_a}
     csrc = "splatjax_torch/csrc/"
     table = [

@@ -25,3 +25,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     switched off for CUDA matmuls."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return a @ b
+
+
+def synchronize(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so that a
+    host clock read after it covers the device's time."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

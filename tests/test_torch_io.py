@@ -1,6 +1,9 @@
 """Port parity, IO and package boundary: the port's .splat codec and scene
 generators against splatjax's (byte- and bit-equal), and a check that
 splatjax_torch imports neither jax nor splatjax."""
+import ast
+import glob
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -17,6 +20,9 @@ import splatjax_torch.io as tio
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "trained_scene.splat")
 FIELDS = ("means", "scales", "quats", "colors", "opacities")
+EXAMPLES = ("demo_render", "demo_orbit", "demo_stereo", "demo_cutout",
+            "demo_depth_interaction", "demo_train", "fit_trained_fixture")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,6 +78,11 @@ def test_port_imports_no_jax():
     assert {"splatjax_torch.parallel", "splatjax_torch.parallel.mesh",
             "splatjax_torch.parallel.dist_render",
             "splatjax_torch.parallel.dist_train"} <= set(names)
+    assert {"splatjax_torch.utils", "splatjax_torch.utils.png",
+            "splatjax_torch.tools.make_fixture",
+            "splatjax_torch.reference.viewer_math",
+            "splatjax_torch.examples"} | {
+        f"splatjax_torch.examples.{m}" for m in EXAMPLES} <= set(names)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -83,9 +94,39 @@ def test_port_imports_no_jax():
         "assert all(sys.modules[m] is None for m in bad), bad\n"
         "print('ok')\n"
     )
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
-    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def _imported_names(init_path):
+    """The public names a package ``__init__`` binds by import."""
+    with open(init_path) as f:
+        tree = ast.parse(f.read())
+    return {alias.asname or alias.name
+            for node in ast.walk(tree)
+            if isinstance(node, (ast.Import, ast.ImportFrom))
+            for alias in node.names
+            if not (alias.asname or alias.name).startswith("_")}
+
+
+def test_public_surface_matches_splatjax():
+    """Every public name a splatjax package __init__ imports is imported
+    by the port's matching __init__, and resolves there."""
+    inits = sorted(glob.glob(os.path.join(ROOT, "splatjax", "**",
+                                          "__init__.py"), recursive=True))
+    assert len(inits) >= 8
+    for init in inits:
+        rel = os.path.relpath(os.path.dirname(init),
+                              os.path.join(ROOT, "splatjax"))
+        pkg = "splatjax_torch" if rel == "." else (
+            "splatjax_torch." + rel.replace(os.sep, "."))
+        port_init = os.path.join(ROOT, *pkg.split("."), "__init__.py")
+        assert os.path.exists(port_init), pkg
+        want = _imported_names(init)
+        missing = want - _imported_names(port_init)
+        assert not missing, (pkg, sorted(missing))
+        mod = importlib.import_module(pkg)
+        assert all(hasattr(mod, n) for n in want), pkg
