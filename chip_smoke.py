@@ -117,7 +117,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         3 K1 and no K2, the clipped frame unlike the full one,
         demo_train's held-out PSNR above its start), every PNG decoded
         back to its frame (K1, K2, K2 16-byte, K3, K4, K7);
-     capacity = the measured demand of both scenes + 3% (paths a-c, h), of
+     j. tile edges: K2 (32- and 16-byte rows), K3 and K4 at 8, 32 and 64 px
+        tiles against their plain versions on every tile of the 192x128 gate
+        scene and on the full-width frame (as phases 3, 4 and 8), the
+        parity and gradient gates at each edge; then, counted: a one-rank
+        ``render_sharded(tile_size=32)`` within 1e-4 of ``render()``, and
+        at 8, 16, 32 and 64 px 10 serving frames through
+        ``SplatRenderer(tile_size=t)``, L1 + Adam steps of
+        ``render(feature_bytes=16, tile_size=t)`` and the 16-byte
+        stale-order redraw over the orbit; ``[tiles]`` and ``[tile-table]``
+        lines (instances, fragments, K2/K3/K4 times and bounds, host
+        medians, device busy and the redraw's device time at each edge);
+     capacity = the measured demand of both scenes + 3% (paths a-c, h, and
+     at each edge j), of
      the base eye and the orbit + 3% (d, e), of the loaded scene + 3% (f),
      ``default_capacity`` of the row count (g); overflow == 0 (path i
      runs the entry points at their own default capacity and reads no
@@ -258,13 +270,14 @@ def kernel_ms(fn, reps: int, entry: tuple[str, str], tries: int = 3
 
 
 def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
-                   tries: int = 3) -> list:
+                   count: int = 0, tries: int = 3) -> list:
     """The device-side kernel records (torch.profiler ``key_averages``) of
     a trace of ``calls`` calls of ``fn``, after one warm-up call; with
     ``cpu`` the host's activity is traced too. torch.profiler can return
     a trace that lacks kernels the calls ran (dropped CUPTI records), so
-    a trace with no kernel record whose name holds ``want`` is taken
-    again, at most ``tries`` times, and then the run fails."""
+    a trace with no kernel record whose name holds ``want`` (or, with
+    ``count``, with another number of them) is taken again, at most
+    ``tries`` times, and then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,10 +294,11 @@ def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)]
-        if any(want in e.key for e in kern):
+        n = sum(e.count for e in kern if want in e.key)
+        if n > 0 and (count == 0 or n == count):
             return kern
         log(f"[timing] a profiler trace held {len(kern)} kernel records, "
-            f"none named {want!r}; tracing again")
+            f"{n} named {want!r} (want {count or 'some'}); tracing again")
     raise AssertionError(f"no {want!r} kernel records in {tries} profiler "
                          "traces")
 
@@ -351,8 +365,9 @@ def projected(scene, cam, early_stop):
     )
 
 
-def binned_rows(scene, cam, capacity, early_stop, packed16=False):
-    """The K2 inputs of the main path: tile-sorted packed rows + bounds."""
+def binned_rows(scene, cam, capacity, early_stop, packed16=False, tile=16):
+    """The K2 inputs of the main path: tile-sorted packed rows + bounds,
+    at tile edge ``tile``."""
     from splatjax_torch.ops.binning import (
         TileConfig, bin_gaussians, features_from_projection,
     )
@@ -362,7 +377,7 @@ def binned_rows(scene, cam, capacity, early_stop, packed16=False):
 
     with torch.no_grad():
         proj = projected(scene, cam, early_stop)
-        cfg = TileConfig(cam.width, cam.height)
+        cfg = TileConfig(cam.width, cam.height, tile, tile)
         b = bin_gaussians(proj, cfg, capacity)
         if int(b.overflow) != 0:
             raise AssertionError(f"overflow {int(b.overflow)} at {capacity}")
@@ -517,14 +532,19 @@ def gate_zbuf(cfg, device):
                                        device=device), cfg)
 
 
-def check_k2_small(gate_scene, gate_cam, packed16):
+def at_tile(tile):
+    """The tile edge in a log line: empty at the default 16 px."""
+    return "" if tile == 16 else f", {tile} px tiles"
+
+
+def check_k2_small(gate_scene, gate_cam, packed16, tile=16):
     from splatjax_torch.ops.rasterize import (
         rasterize_fwd, rasterize_fwd_plain,
     )
 
     err = 0.0
     cfg, b, rows = binned_rows(gate_scene, gate_cam, 1 << 16, 1e-4,
-                               packed16)
+                               packed16, tile)
     zb = gate_zbuf(cfg, rows.device)
     for clip, es, z in ((0.999, 1e-4, None), (None, 0.0, None),
                         (0.999, 1e-4, zb)):
@@ -535,23 +555,25 @@ def check_k2_small(gate_scene, gate_cam, packed16):
         err = max(err, compare_k2(
             out_k, out_p, f"{16 if packed16 else 32}-byte rows, all "
             f"{cfg.num_tiles} tiles of {cfg.width}x{cfg.height}, clip={clip} "
-            f"early_stop={es} zbuf={'yes' if z is not None else 'no'}"))
+            f"early_stop={es} zbuf={'yes' if z is not None else 'no'}"
+            + at_tile(tile)))
     return err
 
 
-def check_k2_full(scene, cam, capacity, packed16):
+def check_k2_full(scene, cam, capacity, packed16, tile=16):
     from splatjax_torch.ops.rasterize import (
         rasterize_fwd, rasterize_fwd_plain,
     )
 
-    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16)
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16, tile)
     args = (rows, b.starts, b.ends, cfg, 0.999, 1e-4, None)
     out_k = rasterize_fwd(*args, packed16)
     tiles = sample_tiles(b, cfg, rows.device)
     out_p = rasterize_fwd_plain(*args, tiles=tiles, packed16=packed16)
     err = compare_k2(out_k[tiles], out_p,
                      f"{16 if packed16 else 32}-byte rows, {tiles.numel()} "
-                     f"sampled tiles of {cfg.width}x{cfg.height}")
+                     f"sampled tiles of {cfg.width}x{cfg.height}"
+                     + at_tile(tile))
     ms, timed = kernel_ms(lambda: rasterize_fwd(*args, packed16), 10,
                            ("rasterize_fwd", "splat_rasterize_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_fwd_plain(*args,
@@ -562,36 +584,37 @@ def check_k2_full(scene, cam, capacity, packed16):
         walked * 32 + cfg.num_tiles * (8 * p * 4 + 8),
         walked * p * K2_OPS_PER_FRAGMENT,
     )
-    log(f"[k2] full frame, {16 if packed16 else 32}-byte rows: "
-        f"{int(b.num_instances)} instances, {walked} walked, kernel "
+    log(f"[k2] full frame, {16 if packed16 else 32}-byte rows"
+        f"{at_tile(tile)}: {int(b.num_instances)} instances, {walked} "
+        "walked, kernel "
         f"{ms:.4f} ms ({timed}), plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
 
-def cached_bins(scene, cam, capacity):
+def cached_bins(scene, cam, capacity, tile=16):
     from splatjax_torch.render import bin_scene
 
-    bins = bin_scene(scene, cam, capacity=capacity, cache_params=True)
+    bins = bin_scene(scene, cam, tile_size=tile, capacity=capacity,
+                     cache_params=True)
     if int(bins.bins.overflow) != 0:
         raise AssertionError(f"overflow {int(bins.bins.overflow)} at "
                              f"{capacity}")
     return bins
 
 
-def k3_args(bins, cam, clip, es):
+def k3_args(bins, cam, clip, es, tile=16):
     from splatjax_torch.ops.binning import TileConfig
     from splatjax_torch.ops.rasterize import cached_camera
 
     return (bins.prm, cached_camera(cam.modelview, cam.projection, cam.width,
                                     cam.height),
-            bins.bins.starts, bins.bins.ends, TileConfig(cam.width,
-                                                         cam.height),
-            clip, es)
+            bins.bins.starts, bins.bins.ends,
+            TileConfig(cam.width, cam.height, tile, tile), clip, es)
 
 
-def check_k3_small(gate_scene, gate_cam):
+def check_k3_small(gate_scene, gate_cam, tile=16):
     """K3 on every tile of the gate scene: bins at the gate camera, drawn
     there and at a moved eye."""
     from splatjax_torch import make_camera
@@ -599,24 +622,24 @@ def check_k3_small(gate_scene, gate_cam):
         rasterize_cached_fwd, rasterize_cached_fwd_plain,
     )
 
-    bins = cached_bins(gate_scene, gate_cam, 1 << 16)
+    bins = cached_bins(gate_scene, gate_cam, 1 << 16, tile)
     moved = make_camera((0.13, -0.18, 2.4), (0, 0, 0), width=gate_cam.width,
                         height=gate_cam.height)
     err = 0.0
     for name, c in (("bin camera", gate_cam), ("moved eye", moved)):
         for clip in (0.999, None):
             for es in (1e-4, 0.0):
-                args = k3_args(bins, c, clip, es)
+                args = k3_args(bins, c, clip, es, tile)
                 err = max(err, compare_k2(
                     rasterize_cached_fwd(*args),
                     rasterize_cached_fwd_plain(*args),
                     f"all {args[4].num_tiles} tiles of {c.width}x"
-                    f"{c.height}, {name}, clip={clip} early_stop={es}",
-                    kernel="K3", tol=K3_TOL))
+                    f"{c.height}, {name}, clip={clip} early_stop={es}"
+                    + at_tile(tile), kernel="K3", tol=K3_TOL))
     return err
 
 
-def check_k3_full(scene, cam, capacity):
+def check_k3_full(scene, cam, capacity, tile=16):
     """K3 on the full-width frame: bins at ``cam``, drawn at the orbit's
     second eye; 64 sampled tiles against the plain version, kernel and
     plain times, bound."""
@@ -625,15 +648,15 @@ def check_k3_full(scene, cam, capacity):
         rasterize_cached_fwd, rasterize_cached_fwd_plain,
     )
 
-    bins = cached_bins(scene, cam, capacity)
+    bins = cached_bins(scene, cam, capacity, tile)
     eye = make_camera(ORBIT[1], (0, 0, 0), width=WIDTH, height=HEIGHT)
-    args = k3_args(bins, eye, 0.999, 1e-4)
+    args = k3_args(bins, eye, 0.999, 1e-4, tile)
     out_k = rasterize_cached_fwd(*args)
     tiles = sample_tiles(bins.bins, args[4], out_k.device)
     out_p = rasterize_cached_fwd_plain(*args, tiles=tiles)
     err = compare_k2(out_k[tiles], out_p,
                      f"{tiles.numel()} sampled tiles of {WIDTH}x{HEIGHT} at "
-                     "an orbit eye", kernel="K3", tol=K3_TOL)
+                     "an orbit eye" + at_tile(tile), kernel="K3", tol=K3_TOL)
     ms, timed = kernel_ms(lambda: rasterize_cached_fwd(*args), 10,
                            ("rasterize_cached", "splat_rasterize_cached_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_cached_fwd_plain(*args), 1)
@@ -644,7 +667,8 @@ def check_k3_full(scene, cam, capacity):
         walked * 64 + cfg.num_tiles * (8 * p * 4 + 8),
         walked * (p * K2_OPS_PER_FRAGMENT + K3_OPS_PER_INSTANCE),
     )
-    log(f"[k3] full frame: {int(bins.bins.num_instances)} instances, "
+    log(f"[k3] full frame{at_tile(tile)}: {int(bins.bins.num_instances)} "
+        "instances, "
         f"{walked} walked, kernel {ms:.4f} ms ({timed}), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -678,12 +702,13 @@ def fused_quality_gate(scene, cam, capacity):
                              f"{err_packed}")
 
 
-def k4_case(scene, cam, capacity, packed16, clip, zbuf, gch, seed=0):
+def k4_case(scene, cam, capacity, packed16, clip, zbuf, gch, seed=0,
+            tile=16):
     """Forward by the kernel, then a seeded random planar cotangent."""
     import torch
     from splatjax_torch.ops.rasterize import rasterize_fwd
 
-    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16)
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, packed16, tile)
     zb = gate_zbuf(cfg, rows.device) if zbuf else None
     out = rasterize_fwd(rows, b.starts, b.ends, cfg, clip, 1e-4, zb,
                         packed16)
@@ -724,7 +749,7 @@ def compare_k4(g_k, g_p, packed16, what, tol=K4_TOL):
     return e
 
 
-def check_k4_small(gate_scene, gate_cam):
+def check_k4_small(gate_scene, gate_cam, tile=16):
     from splatjax_torch.ops.rasterize_vjp import (
         rasterize_bwd, rasterize_bwd_plain,
     )
@@ -735,7 +760,8 @@ def check_k4_small(gate_scene, gate_cam):
             for zbuf in (False, True):
                 for gch in (4, 8):
                     cfg, _, args = k4_case(gate_scene, gate_cam, 1 << 16,
-                                           packed16, clip, zbuf, gch)
+                                           packed16, clip, zbuf, gch,
+                                           tile=tile)
                     err = max(err, compare_k4(
                         rasterize_bwd(*args, packed16=packed16),
                         rasterize_bwd_plain(*args, packed16=packed16),
@@ -744,11 +770,11 @@ def check_k4_small(gate_scene, gate_cam):
                         f"{cfg.num_tiles} tiles of {cfg.width}x"
                         f"{cfg.height}, clip={clip} "
                         f"zbuf={'yes' if zbuf else 'no'} {gch}-channel "
-                        "cotangent"))
+                        "cotangent" + at_tile(tile)))
     return err
 
 
-def check_k4_full(scene, cam, capacity, packed16):
+def check_k4_full(scene, cam, capacity, packed16, tile=16):
     """K4 on the full-width frame: the instances of 64 sampled tiles
     against the plain version, kernel and plain times, bound. Returns the
     numbers and the kernel's gradient rows (the segment sums' input)."""
@@ -757,13 +783,15 @@ def check_k4_full(scene, cam, capacity, packed16):
         rasterize_bwd, rasterize_bwd_plain,
     )
 
-    cfg, b, args = k4_case(scene, cam, capacity, packed16, 0.999, False, 4)
+    cfg, b, args = k4_case(scene, cam, capacity, packed16, 0.999, False, 4,
+                           tile=tile)
     g_k = rasterize_bwd(*args, packed16=packed16)
     if not torch.equal(g_k, rasterize_bwd(*args, packed16=packed16)):
         raise AssertionError(f"K4 rows differ between two runs "
-                             f"({16 if packed16 else 32}-byte rows)")
-    log(f"[k4] full frame, {16 if packed16 else 32}-byte rows: two runs "
-        "bit-identical")
+                             f"({16 if packed16 else 32}-byte rows"
+                             f"{at_tile(tile)})")
+    log(f"[k4] full frame, {16 if packed16 else 32}-byte rows"
+        f"{at_tile(tile)}: two runs bit-identical")
     tiles = sample_tiles(b, cfg, g_k.device)
     g_p = rasterize_bwd_plain(*args, tiles=tiles, packed16=packed16)
     idx = torch.cat([torch.arange(int(b.starts[t]), int(b.ends[t]),
@@ -773,8 +801,8 @@ def check_k4_full(scene, cam, capacity, packed16):
     err = compare_k4(g_k[idx], g_p[idx], packed16,
                      f"{width}-byte rows, the {idx.numel()} instances of "
                      f"{tiles.numel()} sampled tiles of {cfg.width}x"
-                     f"{cfg.height} (deepest walks {deepest} instances)",
-                     tol=K4_TOL_FULL)
+                     f"{cfg.height} (deepest walks {deepest} instances)"
+                     + at_tile(tile), tol=K4_TOL_FULL)
     ms, timed = kernel_ms(lambda: rasterize_bwd(*args, packed16=packed16),
                            10, ("rasterize_bwd", "splat_rasterize_bwd"))
     plain_ms = cuda_ms(lambda: rasterize_bwd_plain(*args,
@@ -788,7 +816,8 @@ def check_k4_full(scene, cam, capacity, packed16):
                                                      + 4 * p * 4),
         walked * p * K4_OPS_PER_FRAGMENT,
     )
-    log(f"[k4] full frame, {width}-byte rows: {walked} walked instances, "
+    log(f"[k4] full frame, {width}-byte rows{at_tile(tile)}: {walked} "
+        "walked instances, "
         f"kernel {ms:.4f} ms ({timed}), plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1167,19 +1196,28 @@ def seg_stage_times(b, g32, g16):
     return out
 
 
-def parity_gate(gate_scene, gate_cam):
+def parity_gate(gate_scene, gate_cam, tile=16, capacity=None):
+    """``capacity``: None for render()'s default (4 N, which the gate scene
+    overflows at 8 px tiles)."""
     from splatjax_torch.reference import render_reference
     from splatjax_torch.render import render
 
-    img = render(gate_scene, gate_cam, early_stop=0.0, alpha_clip=None)
+    img, overflow = render(gate_scene, gate_cam, tile_size=tile,
+                           capacity=capacity, early_stop=0.0,
+                           alpha_clip=None, return_overflow=True)
+    if int(overflow) != 0:
+        raise AssertionError(f"parity gate overflow {int(overflow)}")
     ref = render_reference(gate_scene, gate_cam)
     err = float((img - ref).abs().max())
     if not err < PARITY_TOL:
-        raise AssertionError(f"parity gate failed: max err {err}")
-    log(f"[parity] 2000 splats 192x128 vs reference: max err {err:.3g}")
+        raise AssertionError(f"parity gate failed{at_tile(tile)}: max err "
+                             f"{err}")
+    log(f"[parity] 2000 splats 192x128 vs reference{at_tile(tile)}: max err "
+        f"{err:.3g}")
+    return err
 
 
-def gradient_gate(gate_scene, gate_cam):
+def gradient_gate(gate_scene, gate_cam, tile=16, capacity=None):
     """Port gradients (32-byte rows, exact blend, f32 gather -> K5) against
     torch.autograd through the O(N x P) reference, every leaf."""
     import torch
@@ -1196,8 +1234,10 @@ def gradient_gate(gate_scene, gate_cam):
     os.environ["SPLATJAX_GRAD_GATHER"] = "f32"
     try:
         kernels.reset_launches()
-        (render(params.to_scene(), gate_cam, early_stop=0.0) * tgt
-         ).sum().backward()
+        img, overflow = render(params.to_scene(), gate_cam, tile_size=tile,
+                               capacity=capacity, early_stop=0.0,
+                               return_overflow=True)
+        (img * tgt).sum().backward()
         sync()
         launched = dict(kernels.LAUNCHES)
     finally:
@@ -1205,6 +1245,8 @@ def gradient_gate(gate_scene, gate_cam):
             del os.environ["SPLATJAX_GRAD_GATHER"]
         else:
             os.environ["SPLATJAX_GRAD_GATHER"] = prev
+    if int(overflow) != 0:
+        raise AssertionError(f"gradient gate overflow {int(overflow)}")
     got = torch.cat([getattr(params, k).grad.ravel() for k in LEAVES])
     params.zero_grad()
     (render_reference(params.to_scene(), gate_cam) * tgt).sum().backward()
@@ -1215,12 +1257,15 @@ def gradient_gate(gate_scene, gate_cam):
             (err <= GRAD_TOL * scale + GRAD_TOL * want.abs()).all())):
         raise AssertionError(f"gradient gate failed: max err "
                              f"{float(err.max())} at scale {scale}")
-    for name in ("rasterize_bwd", "segreduce_rows"):
+    for name in (kernels.tiled_counter("rasterize_bwd", tile),
+                 "segreduce_rows"):
         if launched[name] == 0:
             raise AssertionError(f"gradient gate skipped {name}: {launched}")
-    log(f"[grad] 2000 splats 192x128, 32-byte rows, f32 gather: max err "
+    log(f"[grad] 2000 splats 192x128{at_tile(tile)}, 32-byte rows, f32 "
+        "gather: max err "
         f"{float(err.max()):.3g} = {float(err.max()) / scale:.3g} of the "
         f"largest |gradient| {scale:.4g}; launches {launched}")
+    return float(err.max()) / scale
 
 
 def stage_times(scene, cam, capacity):
@@ -1309,10 +1354,13 @@ def train_stage_times(params, cam, target, capacity, cfg):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def profile_calls(fn, calls: int = 5):
+def profile_calls(fn, calls: int = 5, want: str = "", tries: int = 3):
     """Device busy time per call and the kernels that take it, from
-    torch.profiler over ``calls`` calls of ``fn``."""
-    kern = traced_kernels(fn, calls)
+    torch.profiler over ``calls`` calls of ``fn``; with ``want``, a trace
+    without exactly one record a call of a kernel named so is retaken
+    (``traced_kernels``)."""
+    kern = traced_kernels(fn, calls, want=want, count=calls if want else 0,
+                          tries=tries)
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
     launches = sum(e.count for e in kern) / calls
@@ -1333,14 +1381,14 @@ def log_profile(tag, busy_ms, n_kernels, top, kinds, median_ms):
         log(f"[{tag}]   {ms:8.4f} ms  x{calls:<3d} {name[:90]}")
 
 
-def demand(scene, cam, feature_bytes=32):
+def demand(scene, cam, feature_bytes=32, tile=16):
     """Instances the frame needs (capacity 1024 plus the overflow)."""
     import torch
     from splatjax_torch.render import render
 
     with torch.no_grad():
-        _, probe = render(scene, cam, capacity=1024, return_overflow=True,
-                          feature_bytes=feature_bytes)
+        _, probe = render(scene, cam, tile_size=tile, capacity=1024,
+                          return_overflow=True, feature_bytes=feature_bytes)
     return 1024 + int(probe)
 
 
@@ -1478,7 +1526,7 @@ def check_frame(img, what):
     return float(alpha.mean())
 
 
-def redraw_capacity(scene):
+def redraw_capacity(scene, tile=16):
     """Instances the base eye and the orbit need, + 3% (bench.py's
     capacity probe)."""
     from splatjax_torch import make_camera
@@ -1487,8 +1535,8 @@ def redraw_capacity(scene):
     need = 0
     for eye in [EYE] + ORBIT:
         c = make_camera(eye, (0, 0, 0), width=WIDTH, height=HEIGHT)
-        need = max(need, int(bin_scene(scene, c, capacity=1024
-                                       ).num_instances))
+        need = max(need, int(bin_scene(scene, c, tile_size=tile,
+                                       capacity=1024).num_instances))
     return need, -(-int(need * 1.03) // 1024) * 1024
 
 
@@ -2543,6 +2591,254 @@ def tooling_path(workdir, smi):
     return phases
 
 
+# -- path j: tile edges -------------------------------------------------------
+
+NEW_EDGES = (8, 32, 64)   # the tile edges path j adds to the default 16
+RASTERIZERS = ("rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
+               "rasterize_bwd")
+
+
+def edge_capacity(scene, start, cam, tile):
+    """The serving and training frames' demand at tile edge ``tile`` (the
+    fixture scene at 32-byte rows, the noisy start at 16-byte rows) and
+    its capacity, + 3%."""
+    need = max(demand(scene, cam, 32, tile), demand(start.to_scene(), cam,
+                                                    16, tile))
+    return need, -(-int(need * 1.03) // 1024) * 1024
+
+
+def tile_kernel_checks(gate_scene, gate_cam, scene, cam, start, tile):
+    """Path j's kernel checks at one added edge: K2 (32- and 16-byte rows),
+    K3 and K4 on every tile of the gate scene and on the full frame
+    against their plain versions, the parity and gradient gates. Returns
+    the four kernel rows' numbers and the gates' errors."""
+    need, capacity = edge_capacity(scene, start, cam, tile)
+    log(f"[tiles] {tile} px: demand {need} instances, capacity {capacity}")
+    rows = {}
+    for packed16, name in ((False, "rasterize_fwd"),
+                           (True, "rasterize_fwd16")):
+        err = check_k2_small(gate_scene, gate_cam, packed16, tile)
+        rows[name] = check_k2_full(scene, cam, capacity, packed16, tile)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    err = check_k3_small(gate_scene, gate_cam, tile)
+    _, capacity_e = redraw_capacity(scene, tile)
+    rows["rasterize_cached"] = check_k3_full(scene, cam, capacity_e, tile)
+    rows["rasterize_cached"]["max_abs_err"] = max(
+        rows["rasterize_cached"]["max_abs_err"], err)
+    err = check_k4_small(gate_scene, gate_cam, tile)
+    k4_32, _, _ = check_k4_full(scene, cam, capacity, False, tile)
+    rows["rasterize_bwd"], _, _ = check_k4_full(scene, cam, capacity, True,
+                                                tile)
+    rows["rasterize_bwd"]["max_abs_err"] = max(
+        rows["rasterize_bwd"]["max_abs_err"], k4_32["max_abs_err"], err)
+    gates = dict(parity=parity_gate(gate_scene, gate_cam, tile, 1 << 16),
+                 grad=gradient_gate(gate_scene, gate_cam, tile, 1 << 16))
+    return rows, gates
+
+
+def sharded_tile_frames(scene, cam, capacity, tile, workdir):
+    """``render_sharded(tile_size=tile)`` on a one-rank NCCL group, both
+    band layouts, against ``render(tile_size=tile)``: within 1e-4, no
+    instance dropped."""
+    import torch
+    import torch.distributed as dist
+    from splatjax_torch.parallel import (
+        init_distributed, make_mesh, render_sharded,
+    )
+    from splatjax_torch.render import render
+
+    if not init_distributed("file://" + os.path.join(workdir, "store_tiles"),
+                            1, 0, device="cuda"):
+        raise AssertionError("init_distributed started no group")
+    try:
+        mesh = make_mesh(1)
+        with torch.no_grad():
+            ref = render(scene, cam, tile_size=tile, capacity=capacity)
+            for bal in ("load", "equal"):
+                img, ov = render_sharded(
+                    scene, cam, mesh, tile_size=tile, balance=bal,
+                    pair_capacity=scene.num_gaussians, capacity=capacity,
+                    return_overflow=True)
+                err = float((img - ref).abs().max())
+                check_frame(img, f"render_sharded at {tile} px")
+                if int(ov.sum()) != 0 or not err <= 1e-4:
+                    raise AssertionError(
+                        f"render_sharded {bal} at {tile} px: overflow "
+                        f"{ov.tolist()}, max err {err}")
+                log(f"[tiles] render_sharded one rank, {bal} bands, {tile} px "
+                    f"tiles: max |image - render(tile_size={tile})| "
+                    f"{err:.3g}, overflow {ov.tolist()}")
+    finally:
+        dist.destroy_process_group()
+
+
+def traced_busy(fn, calls, want):
+    """Device busy ms per call and the top kernels (``profile_calls``), or
+    (None, []) when no trace held one ``want`` kernel a call (the profiler
+    dropped records): a busy time without them would be wrong."""
+    try:
+        busy, _, top, _ = profile_calls(fn, calls, want=want, tries=5)
+    except AssertionError as e:
+        log(f"[tiles] device busy not measured: {e}")
+        return None, []
+    return busy, top
+
+
+def ms_or_not(x):
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+def tile_edge_drive(scene, cam, start, tile):
+    """One edge of path j's main path at full size: 10 serving frames
+    through ``SplatRenderer(tile_size=tile)``, gradient steps of
+    ``render(feature_bytes=16, tile_size=tile)`` with an L1 loss and Adam,
+    and the 16-byte stale-order redraw over the orbit; host medians,
+    device busy per frame and step, the redraw's device time by CUDA
+    events. Returns the table row."""
+    import torch
+    from splatjax_torch import SplatRenderer, make_camera
+    from splatjax_torch.ops.binning import TileConfig
+    from splatjax_torch.render import render, render_binned
+    from splatjax_torch.train import FitConfig
+    from splatjax_torch.train.fit import _optimizer
+
+    need, capacity = edge_capacity(scene, start, cam, tile)
+    cfg = TileConfig(WIDTH, HEIGHT, tile, tile)
+    renderer = SplatRenderer(scene=scene, capacity=capacity, tile_size=tile)
+    img, overflow = renderer.render(cam, return_overflow=True)
+    if int(overflow) != 0:
+        raise AssertionError(f"overflow {int(overflow)} at {tile} px")
+    frame_ms = []
+    for _ in range(FRAMES):
+        sync()
+        t0 = time.perf_counter()
+        img = renderer.render(cam)
+        sync()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    check_frame(img, f"serving frame at {tile} px")
+    frame_busy, frame_top = traced_busy(lambda: renderer.render(cam), 5,
+                                        "rasterize_fwd_kernel")
+    del renderer, img
+
+    params = noisy_start(scene)
+    opt = _optimizer(params, FitConfig())
+    with torch.no_grad():
+        target = render(scene, cam, capacity=capacity, tile_size=tile)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        out = render(params.to_scene(), cam, tile_size=tile,
+                     capacity=capacity, feature_bytes=16)
+        loss = (out - target).abs().mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(step()) for _ in range(3)]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"L1 steps at {tile} px: losses {losses}")
+    with torch.no_grad():
+        _, overflow = render(params.to_scene(), cam, tile_size=tile,
+                             capacity=capacity, feature_bytes=16,
+                             return_overflow=True)
+    if int(overflow) != 0:
+        raise AssertionError(f"step overflow {int(overflow)} at {tile} px")
+    step_busy, step_top = traced_busy(step, 3, "rasterize_bwd_kernel")
+    del params, opt, target
+
+    _, capacity_e = redraw_capacity(scene, tile)
+    eyes = [make_camera(e, (0, 0, 0), width=WIDTH, height=HEIGHT)
+            for e in ORBIT * REDRAW_LAPS]
+    redraw = SplatRenderer(scene=scene, capacity=capacity_e,
+                           feature_bytes=16, tile_size=tile,
+                           resort_interval=RESORT_INTERVAL,
+                           alpha_clip=0.999, early_stop=1e-4)
+    redraw_ms = []
+    for i, c in enumerate(eyes):
+        sync()
+        t0 = time.perf_counter()
+        img = redraw.render(c)
+        sync()
+        if i % RESORT_INTERVAL == 0:
+            if int(redraw._bins.bins.overflow) != 0:
+                raise AssertionError(f"redraw overflow at {tile} px")
+        else:
+            redraw_ms.append((time.perf_counter() - t0) * 1e3)
+    check_frame(img, f"redraw at {tile} px")
+    bins = redraw._bins
+    # by CUDA events: torch.profiler's traces of these sub-millisecond
+    # calls dropped K3 records on the card (2 of 5 kept, every retake)
+    redraw_dev = event_stages([("redraw", lambda _: render_binned(
+        scene, cam, bins, tile_size=tile, feature_bytes=16,
+        alpha_clip=0.999, early_stop=1e-4))])["redraw"]
+    row = dict(tile=tile, tiles=cfg.num_tiles, instances=need,
+               fragments=need * cfg.pixels_per_tile,
+               frame_ms=statistics.median(frame_ms), frame_busy=frame_busy,
+               step_busy=step_busy, redraw_ms=statistics.median(redraw_ms),
+               redraw_dev=redraw_dev, losses=losses)
+    log(f"[tiles] {tile} px drive: serving median {row['frame_ms']:.3f} ms, "
+        f"busy {ms_or_not(frame_busy)} ms; L1 + Adam step (16-byte rows) "
+        f"busy {ms_or_not(step_busy)} ms, loss "
+        f"{' -> '.join(f'{x:.5f}' for x in losses)}; redraw median "
+        f"{row['redraw_ms']:.3f} ms, device {redraw_dev:.3f} ms (events)")
+    for what, top in (("frame", frame_top), ("step", step_top)):
+        log(f"[tiles] {tile} px {what} top kernels: " + "; ".join(
+            f"{ms:.4f} ms x{n} {name[:60]}" for name, ms, n in top[:3]))
+    return row
+
+
+def tile_path(gate_scene, gate_cam, scene, cam, start, base_rows, smi,
+              workdir):
+    """Path j: K2, K3 and K4 at tile edges 8, 32 and 64 against their
+    plain versions, the gates at each, then the main path at 8, 16, 32
+    and 64 px with the launch counts reset just before and read just
+    after: a one-rank ``render_sharded`` at 32 px, and at each edge the
+    serving frames, the gradient steps and the redraw. ``base_rows``: the
+    16 px kernels' numbers from the earlier phases. Returns the launches
+    and the added edges' kernel rows."""
+    from splatjax_torch import kernels
+
+    t0 = time.perf_counter()
+    rows, gates = {}, {}
+    for tile in NEW_EDGES:
+        rows[tile], gates[tile] = tile_kernel_checks(
+            gate_scene, gate_cam, scene, cam, start, tile)
+    sync()
+    kernels.reset_launches()
+    sharded_tile_frames(scene, cam, edge_capacity(scene, start, cam, 32)[1],
+                        32, workdir)
+    table = [tile_edge_drive(scene, cam, start, tile)
+             for tile in (8, 16, 32, 64)]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    for tile in NEW_EDGES:
+        require(launches, [kernels.tiled_counter(n, tile)
+                           for n in RASTERIZERS], f"path j at {tile} px")
+    require(launches, RASTERIZERS, "path j at 16 px")
+    log(f"[launches] tile edges: {launches}")
+    rows[16] = {n: base_rows[n] for n in RASTERIZERS}
+    log(f"[tile-table] {smi}; kernels and the redraw's device time by "
+        "CUDA events, frame and step busy by torch.profiler; K2 32-byte "
+        "and 16-byte, K3 at an orbit eye, K4 16-byte, each with its bound")
+    for r in table:
+        k = rows[r["tile"]]
+        kern = ", ".join(
+            f"{n} {k[n]['ms']:.4f} (bound {k[n]['bound_ms']:.4f})"
+            for n in RASTERIZERS)
+        gate = "" if r["tile"] == 16 else (
+            f"; parity {gates[r['tile']]['parity']:.3g}, gradient "
+            f"{gates[r['tile']]['grad']:.3g} of max")
+        log(f"[tile-table] {r['tile']:2d} px: {r['tiles']} tiles, "
+            f"{r['instances']} instances, {r['fragments']} fragments; "
+            f"{kern} ms; frame median {r['frame_ms']:.3f} ms busy "
+            f"{ms_or_not(r['frame_busy'])}; step busy "
+            f"{ms_or_not(r['step_busy'])}; redraw median "
+            f"{r['redraw_ms']:.3f} device {r['redraw_dev']:.3f}{gate}")
+    log(f"[tiles] path j in {time.perf_counter() - t0:.1f} s")
+    return launches, {t: rows[t] for t in NEW_EDGES}
+
+
 def require(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
@@ -2698,6 +2994,11 @@ def main() -> int:
         launches_i, launches_j = dist_path(scene, cam, noisy_start(scene),
                                            target, capacity, smi, workdir)
         launches_tooling = tooling_path(workdir, smi)
+        base_rows = dict(rasterize_fwd=k2, rasterize_fwd16=k2_16,
+                         rasterize_cached=k3, rasterize_bwd=k4)
+        launches_tiles, tile_rows = tile_path(
+            gate_scene, gate_cam, scene, cam, noisy_start(scene), base_rows,
+            smi, workdir)
     require(launches_h, ("expand", "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "densify + checkpoint")
     require(launches_j, ("expand", "rasterize_fwd16", "rasterize_bwd",
@@ -2715,7 +3016,7 @@ def main() -> int:
     total = {n: sum(launches[n] for launches in (
         launches_a, launches_b, launches_c, launches_d, launches_e,
         launches_f, launches_g, launches_h, launches_i, launches_j,
-        *launches_tooling))
+        *launches_tooling, launches_tiles))
         for n in launches_a}
     csrc = "splatjax_torch/csrc/"
     table = [
@@ -2752,6 +3053,22 @@ def main() -> int:
              replaces="splatjax/ops/segreduce.py:388",
              launches=total["segreduce_bf16"], **seg["segreduce_bf16"]),
     ]
+    sources = {"rasterize_fwd": ("rasterize_fwd", "rasterize_fwd.cu",
+                                 "rasterize.py:678"),
+               "rasterize_fwd16": ("rasterize_fwd16", "rasterize_fwd.cu",
+                                   "rasterize.py:678"),
+               "rasterize_cached": ("rasterize_cached_fwd",
+                                    "rasterize_cached.cu",
+                                    "rasterize.py:1123"),
+               "rasterize_bwd": ("rasterize_bwd", "rasterize_bwd.cu",
+                                 "rasterize_vjp.py:97")}
+    for tile in NEW_EDGES:
+        for counter, (name, src, where) in sources.items():
+            table.append(dict(
+                name=f"{name}@{tile}", route="cuda", source=csrc + src,
+                replaces="splatjax/ops/" + where,
+                launches=total[kernels.tiled_counter(counter, tile)],
+                library_ms=None, **tile_rows[tile][counter]))
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Compare the compiled SASS of the port's CUDA kernels with another tree's.
+
+    python3 sass_diff.py OTHER_TREE [SOURCE ...]
+
+OTHER_TREE is a checkout of another commit (for example ``git archive``
+of the parent, unpacked under ``build/``). Each source of
+``splatjax_torch/csrc`` (default: the three rasterizers) is compiled to a
+cubin from both trees for ``sm_90a`` at ``-O3``, as
+``splatjax_torch.kernels`` builds it, and disassembled with ``cuobjdump
+-sass``. For every kernel of the
+other tree it prints its instruction count and the kernels of this tree
+whose instructions are the same, ignoring addresses and encodings; where
+none is, the count of differing instructions against this tree's 16 px
+instantiation of the same kernel and row width. Needs ``nvcc`` and
+``cuobjdump`` (CUDA_HOME or /usr/local/cuda), no card.
+"""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join("splatjax_torch", "csrc")
+SOURCES = ("rasterize_fwd.cu", "rasterize_cached.cu", "rasterize_bwd.cu")
+
+
+def disassemble(source: str, workdir: str) -> dict[str, list[str]]:
+    """Kernel name -> its SASS instructions, without addresses and
+    encodings."""
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cubin = os.path.join(workdir, "k.cubin")
+    subprocess.run([os.path.join(cuda, "bin", "nvcc"), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-cubin", "-o", cubin, source], check=True)
+    text = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
+                           cubin], check=True, capture_output=True,
+                          text=True).stdout
+    kernels: dict[str, list[str]] = {}
+    body = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            body = kernels.setdefault(m.group(1), [])
+            continue
+        ins = re.sub(r"/\*[0-9a-fx]+\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+        if body is not None and ins:
+            body.append(ins)
+    return kernels
+
+
+def kernel_key(name: str) -> tuple[str, bool]:
+    """(kernel function, its PACKED16 argument) of a mangled name."""
+    return re.search(r"([a-z_]+_kernel)", name).group(1), "Lb1E" in name
+
+
+def compare(other: str, source: str) -> None:
+    with tempfile.TemporaryDirectory() as d:
+        theirs = disassemble(os.path.join(other, CSRC, source), d)
+        ours = disassemble(os.path.join(HERE, CSRC, source), d)
+    for name, body in theirs.items():
+        same = [n for n, b in ours.items() if b == body]
+        print(f"{source}: {kernel_key(name)}: {len(body)} instructions; "
+              f"{len(same)} identical here")
+        for n, b in ours.items():
+            if not same and "Li16E" in n and kernel_key(n) == kernel_key(
+                    name):
+                differ = sum(x != y for x, y in zip(body, b)) + abs(
+                    len(body) - len(b))
+                print(f"  the 16 px instantiation here: {len(b)} "
+                      f"instructions, {differ} differ position by position")
+
+
+def main(argv: list[str]) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for source in argv[1:] or SOURCES:
+        compare(argv[0], source)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -54,6 +54,7 @@ def compose_scene(
     camera: Camera,
     *,
     background=None,
+    tile_size: int = 16,
     capacity: Optional[int] = None,
     alpha_clip="auto",
     early_stop: float = 1e-4,
@@ -64,7 +65,8 @@ def compose_scene(
     against the merged opaque depth, over the merged opaque color, over the
     optional (3,) background.
 
-    splat_instances: as :func:`splatjax_torch.render.render_instances`.
+    splat_instances: as :func:`splatjax_torch.render.render_instances`;
+    tile_size as :func:`splatjax_torch.render.render`.
     Differentiable w.r.t. the splat parameters (the z-cull is a mask)."""
     dev = splat_instances[0][0].device
     zbuf = None
@@ -73,8 +75,9 @@ def compose_scene(
             OpaqueLayer(_f32(layer.rgb, dev), _f32(layer.z, dev))
             for layer in opaque_layers])
     img = render_instances(
-        splat_instances, camera, capacity=capacity, alpha_clip=alpha_clip,
-        early_stop=early_stop, zbuf=zbuf, feature_bytes=feature_bytes,
+        splat_instances, camera, tile_size=tile_size, capacity=capacity,
+        alpha_clip=alpha_clip, early_stop=early_stop, zbuf=zbuf,
+        feature_bytes=feature_bytes,
     )
     if opaque_layers:
         # lay the opaque resolve under the splats only where it covers

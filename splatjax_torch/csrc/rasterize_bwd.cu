@@ -20,19 +20,25 @@
 // Bytes are small: one packed row per walked instance in, one 64-byte
 // (32-byte when packed) gradient row out. PERF.md has the measured times.
 //
-// Design:
-// * one 256-thread block per 16x16 tile, taken heaviest first: block b
-//   re-walks tile order[b], the binning's permutation of all tiles by
-//   descending list length, the forward's order too;
-// * one pixel per thread (PIX): on the 1M-splat 1920x1080 frame, measured
-//   on an H100 SXM at 700 W, two pixels a thread on 128 threads took 1.3x
-//   the time and four on 64 threads 2x, because a deep tile's latency-bound
-//   walk then runs on 4 or 2 warps instead of 8;
+// Design, a template over the square tile edge TILE (8, 16, 32 or 64 px;
+// P = TILE^2 pixels, the geometry in Backward<TILE>):
+// * one block per tile, taken heaviest first: block b re-walks tile
+//   order[b], the binning's permutation of all tiles by descending list
+//   length, the forward's order too;
+// * at 16 px one pixel per thread (PIX) on 256 threads: on the 1M-splat
+//   1920x1080 frame, measured on an H100 SXM at 700 W, two pixels a thread
+//   on 128 threads took 1.3x the time and four on 64 threads 2x, because a
+//   deep tile's latency-bound walk then runs on 4 or 2 warps instead of 8.
+//   Wider tiles keep 256 threads (8 warps, so the warps' partials stay at
+//   40 KB of shared memory) and raise PIX, 4 at 32 px and 16 at 64 px,
+//   whose per-pixel arrays spill to local memory; an 8 px tile runs 64
+//   threads, one pixel each;
 // * it walks exactly the chunks the forward walked: chunks_done (row 4 of
 //   the saved output) from astart = start / 128 * 128, last chunk first;
-//   the first 128 threads decode one of the chunk's rows each into shared
-//   memory as four records, (c0, c1, c2, c3), (c4, c5, threshold, depth),
-//   (r, g, b, mxl) and (myl, opacity), so a walked fragment costs two
+//   the first 128 threads decode one of the chunk's rows each (at 8 px
+//   the 64 threads two each) into shared memory as four records, (c0,
+//   c1, c2, c3), (c4, c5, threshold, depth), (r, g, b, mxl) and (myl,
+//   opacity), so a walked fragment costs two
 //   16-byte broadcast loads, and two more only when it is live;
 // * transmittance comes from the saved LOG T_final (row 6), never from T:
 //   log T_k = log T_after - log1p(-alpha_k), so stacks whose T drops below
@@ -65,17 +71,24 @@
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;
 constexpr int CHUNK = 128;
 constexpr int OUT_ROWS = 8;
-constexpr int PIX = 1;                // pixels per thread, one above another
-constexpr int THREADS = P / PIX;      // 256 threads per tile
-constexpr int NWARPS = THREADS / 32;
 constexpr int NSUM = 10;
 constexpr float LOG_OM_MIN = -60.0f;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-static_assert(THREADS % CHUNK == 0, "one row per thread of the first 128");
+
+// The block geometry of a TILE x TILE tile (see the design notes above).
+template <int TILE>
+struct Backward {
+  static constexpr int P = TILE * TILE;
+  static constexpr int THREADS = P < 256 ? P : 256;
+  static constexpr int PIX = P / THREADS;  // pixels a thread, in a column
+  static constexpr int NWARPS = THREADS / 32;
+  static_assert(TILE % 8 == 0 && P % THREADS == 0,
+                "tile edge 8, 16, 32 or 64");
+  static_assert(THREADS % CHUNK == 0 || CHUNK % THREADS == 0,
+                "the threads decode a chunk's rows in whole rounds");
+};
 
 __device__ __forceinline__ uint32_t bf16_round_bits(float x) {
   const uint32_t u = __float_as_uint(x);
@@ -137,8 +150,72 @@ __device__ __forceinline__ float warp_reduce_scatter(const float (&v)[NSUM],
   return q + __shfl_xor_sync(FULL, q, 1);
 }
 
-template <bool PACKED16>
-__global__ void __launch_bounds__(THREADS)
+// Chunk row r's shared records from instance base + r's packed row: the
+// power polynomial (s_pow, s_cut), colour and the mean's x offset
+// (s_col), the mean's y offset and opacity (s_aux).
+template <bool PACKED16, bool EXACT>
+__device__ __forceinline__ void stage_row(const int4* __restrict__ rows,
+                                          int base, int r, float ox, float oy,
+                                          float4* s_pow, float4* s_cut,
+                                          float4* s_col, float2* s_aux) {
+  const Decoded d = decode_row<PACKED16>(rows, (long long)base + r);
+  const float mxl = d.mx - ox, myl = d.my - oy;
+  power_records<EXACT>(d, mxl, myl, s_pow[r], s_cut[r]);
+  s_col[r] = make_float4(d.r, d.g, d.b, mxl);
+  s_aux[r] = make_float2(myl, d.opa);
+}
+
+// Instance base + r's gradient row from the warps' partial sums of chunk
+// row r and its records: the 10 sums in warp order, chained to (mean2d,
+// conic, colour, opacity, depth), written as f32 or as bf16 pairs.
+template <bool PACKED16, int NWARPS>
+__device__ __forceinline__ void write_grad_row(
+    const float (*s_part)[CHUNK][NSUM], const float4* s_pow,
+    const float4* s_cut, const float2* s_aux, int base, int r,
+    void* __restrict__ grad) {
+  float sum[NSUM];
+#pragma unroll
+  for (int k = 0; k < NSUM; ++k) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int wi = 0; wi < NWARPS; ++wi) acc += s_part[wi][r][k];
+    sum[k] = acc;
+  }
+  // the conic from its exact power coefficients (-ca/2, -cb, -cc/2)
+  const float ca = -2.0f * s_pow[r].w, cb = -s_cut[r].x;
+  const float cc = -2.0f * s_cut[r].y;
+  const float opa = s_aux[r].y;
+  float ch[16];
+  ch[0] = ca * sum[1] + cb * sum[2];              // mean2d.x
+  ch[1] = cb * sum[1] + cc * sum[2];              // mean2d.y
+  ch[2] = -0.5f * sum[3];                         // conic a
+  ch[3] = -sum[4];                                // conic b
+  ch[4] = -0.5f * sum[5];                         // conic c
+  ch[5] = sum[6];                                 // r
+  ch[6] = sum[7];                                 // g
+  ch[7] = sum[8];                                 // b
+  ch[8] = sum[0] / (fabsf(opa) > 1e-12f ? opa : 1e-12f);  // opacity
+  ch[9] = sum[9];                                 // depth
+#pragma unroll
+  for (int k = 10; k < 16; ++k) ch[k] = 0.0f;
+  const long long kk = (long long)base + r;
+  if (PACKED16) {
+    int4* o = reinterpret_cast<int4*>(grad) + 2 * kk;
+    o[0] = make_int4(pack_pair(ch[0], ch[8]), pack_pair(ch[1], ch[9]),
+                     pack_pair(ch[2], ch[10]), pack_pair(ch[3], ch[11]));
+    o[1] = make_int4(pack_pair(ch[4], ch[12]), pack_pair(ch[5], ch[13]),
+                     pack_pair(ch[6], ch[14]), pack_pair(ch[7], ch[15]));
+  } else {
+    float4* o = reinterpret_cast<float4*>(grad) + 4 * kk;
+    o[0] = make_float4(ch[0], ch[1], ch[2], ch[3]);
+    o[1] = make_float4(ch[4], ch[5], ch[6], ch[7]);
+    o[2] = make_float4(ch[8], ch[9], 0.0f, 0.0f);
+    o[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+template <int TILE, bool PACKED16>
+__global__ void __launch_bounds__(Backward<TILE>::THREADS)
 rasterize_bwd_kernel(const int4* __restrict__ rows,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends,
@@ -148,11 +225,15 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
                      const float* __restrict__ zbuf, void* __restrict__ grad,
                      int tiles_x, int has_clip, float log_clip,
                      int clamp_log_om, int om_floor) {
+  using G = Backward<TILE>;
+  constexpr int P = G::P, PIX = G::PIX, THREADS = G::THREADS;
+  constexpr int NWARPS = G::NWARPS;
+  constexpr bool EXACT = ExactPower<TILE>::value;
   __shared__ float4 s_pow[CHUNK];  // c0, c1, c2, c3
   __shared__ float4 s_cut[CHUNK];  // c4, c5, log-alpha threshold, depth
   __shared__ float4 s_col[CHUNK];  // r, g, b, mean x - tile centre x
   __shared__ float2 s_aux[CHUNK];  // mean y - tile centre y, opacity
-  __shared__ float s_part[NWARPS][CHUNK][NSUM];  // 48128 B in all
+  __shared__ float s_part[NWARPS][CHUNK][NSUM];  // 48128 B in all, 8 warps
 
   const int t = order[blockIdx.x];
   const int tid = threadIdx.x;
@@ -199,12 +280,18 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
     __syncthreads();  // the previous chunk's readers of shared memory
-    if (tid >= lo && tid < hi) {  // hi <= 128: the first 128 threads
-      const Decoded d = decode_row<PACKED16>(rows, (long long)base + tid);
-      const float mxl = d.mx - ox, myl = d.my - oy;
-      power_records(d, mxl, myl, s_pow[tid], s_cut[tid]);
-      s_col[tid] = make_float4(d.r, d.g, d.b, mxl);
-      s_aux[tid] = make_float2(myl, d.opa);
+    if constexpr (THREADS >= CHUNK) {
+      if (tid >= lo && tid < hi) {  // hi <= 128: the first 128 threads
+        stage_row<PACKED16, EXACT>(rows, base, tid, ox, oy, s_pow, s_cut,
+                                   s_col, s_aux);
+      }
+    } else {  // fewer threads than rows: loop
+      for (int r = tid; r < CHUNK; r += THREADS) {
+        if (r >= lo && r < hi) {
+          stage_row<PACKED16, EXACT>(rows, base, r, ox, oy, s_pow, s_cut,
+                                     s_col, s_aux);
+        }
+      }
     }
     __syncthreads();
 
@@ -212,8 +299,8 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
       const float4 ct = s_cut[i];
       float power[PIX];
       bool hit[PIX];
-      const bool any =
-          eval_power(s_pow[i], ct, x, xx, y, xy, yy, zb, power, hit);
+      const bool any = eval_power<EXACT>(s_pow[i], ct, x, xx, y, xy, yy, zb,
+                                         power, hit);
       float v[NSUM];
 #pragma unroll
       for (int k = 0; k < NSUM; ++k) v[k] = 0.0f;
@@ -259,79 +346,86 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
     }
     __syncthreads();
 
-    if (tid >= lo && tid < hi) {
-      const int r = tid;
-      float sum[NSUM];
-#pragma unroll
-      for (int k = 0; k < NSUM; ++k) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int wi = 0; wi < NWARPS; ++wi) acc += s_part[wi][r][k];
-        sum[k] = acc;
+    if constexpr (THREADS >= CHUNK) {
+      if (tid >= lo && tid < hi) {
+        write_grad_row<PACKED16, NWARPS>(s_part, s_pow, s_cut, s_aux, base,
+                                         tid, grad);
       }
-      // the conic from its exact power coefficients (-ca/2, -cb, -cc/2)
-      const float ca = -2.0f * s_pow[r].w, cb = -s_cut[r].x;
-      const float cc = -2.0f * s_cut[r].y;
-      const float opa = s_aux[r].y;
-      float ch[16];
-      ch[0] = ca * sum[1] + cb * sum[2];              // mean2d.x
-      ch[1] = cb * sum[1] + cc * sum[2];              // mean2d.y
-      ch[2] = -0.5f * sum[3];                         // conic a
-      ch[3] = -sum[4];                                // conic b
-      ch[4] = -0.5f * sum[5];                         // conic c
-      ch[5] = sum[6];                                 // r
-      ch[6] = sum[7];                                 // g
-      ch[7] = sum[8];                                 // b
-      ch[8] = sum[0] / (fabsf(opa) > 1e-12f ? opa : 1e-12f);  // opacity
-      ch[9] = sum[9];                                 // depth
-#pragma unroll
-      for (int k = 10; k < 16; ++k) ch[k] = 0.0f;
-      const long long kk = (long long)base + r;
-      if (PACKED16) {
-        int4* o = reinterpret_cast<int4*>(grad) + 2 * kk;
-        o[0] = make_int4(pack_pair(ch[0], ch[8]), pack_pair(ch[1], ch[9]),
-                         pack_pair(ch[2], ch[10]), pack_pair(ch[3], ch[11]));
-        o[1] = make_int4(pack_pair(ch[4], ch[12]), pack_pair(ch[5], ch[13]),
-                         pack_pair(ch[6], ch[14]), pack_pair(ch[7], ch[15]));
-      } else {
-        float4* o = reinterpret_cast<float4*>(grad) + 4 * kk;
-        o[0] = make_float4(ch[0], ch[1], ch[2], ch[3]);
-        o[1] = make_float4(ch[4], ch[5], ch[6], ch[7]);
-        o[2] = make_float4(ch[8], ch[9], 0.0f, 0.0f);
-        o[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      for (int r = tid; r < CHUNK; r += THREADS) {
+        if (r >= lo && r < hi) {
+          write_grad_row<PACKED16, NWARPS>(s_part, s_pow, s_cut, s_aux, base,
+                                           r, grad);
+        }
       }
     }
   }
+}
+
+template <int TILE>
+int launch_bwd(const int4* r, const int* starts, const int* ends,
+               const int* order, const float* out_saved, const float* g_out,
+               int gch, const float* zbuf, void* grad, int num_tiles,
+               int tiles_x, int has_clip, float log_clip, int clamp_log_om,
+               int om_floor, int packed16, cudaStream_t stream) {
+  constexpr int THREADS = Backward<TILE>::THREADS;
+  if (packed16) {
+    rasterize_bwd_kernel<TILE, true><<<num_tiles, THREADS, 0, stream>>>(
+        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
+        has_clip, log_clip, clamp_log_om, om_floor);
+  } else {
+    rasterize_bwd_kernel<TILE, false><<<num_tiles, THREADS, 0, stream>>>(
+        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
+        has_clip, log_clip, clamp_log_om, om_floor);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // rows: (K, 8) int32 packed rows as the forward read them; starts/ends:
 // (num_tiles,) int32; order: (num_tiles,) int32 permutation of the tiles,
-// heaviest first; out_saved: (num_tiles, 8, 256) f32 forward output;
-// g_out: (num_tiles, gch, 256) f32 planar cotangent, gch 4 (r, g, b,
+// heaviest first; out_saved: (num_tiles, 8, P) f32 forward output;
+// g_out: (num_tiles, gch, P) f32 planar cotangent, gch 4 (r, g, b,
 // T_final) or 8 (the forward's rows, depth in row 5); zbuf:
-// (num_tiles, 256) f32 or null; grad: zero-filled (K, 16) f32, or (K, 8)
-// int32 bf16 pairs when packed16.
+// (num_tiles, P) f32 or null; grad: zero-filled (K, 16) f32, or (K, 8)
+// int32 bf16 pairs when packed16; P = tile * tile. tile: the square tile
+// edge, 8, 16, 32 or 64; any other returns cudaErrorInvalidValue and
+// launches nothing.
 extern "C" int splat_rasterize_bwd(const int* rows, const int* starts,
                                    const int* ends, const int* order,
                                    const float* out_saved,
                                    const float* g_out, int gch,
                                    const float* zbuf, void* grad,
-                                   int num_tiles, int tiles_x, int has_clip,
-                                   float log_clip, int clamp_log_om,
-                                   int om_floor, int packed16,
-                                   cudaStream_t stream) {
+                                   int num_tiles, int tiles_x, int tile,
+                                   int has_clip, float log_clip,
+                                   int clamp_log_om, int om_floor,
+                                   int packed16, cudaStream_t stream) {
+  if (tile != 8 && tile != 16 && tile != 32 && tile != 64) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (num_tiles == 0) return 0;
   const int4* r = reinterpret_cast<const int4*>(rows);
-  if (packed16) {
-    rasterize_bwd_kernel<true><<<num_tiles, THREADS, 0, stream>>>(
-        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
-        has_clip, log_clip, clamp_log_om, om_floor);
-  } else {
-    rasterize_bwd_kernel<false><<<num_tiles, THREADS, 0, stream>>>(
-        r, starts, ends, order, out_saved, g_out, gch, zbuf, grad, tiles_x,
-        has_clip, log_clip, clamp_log_om, om_floor);
+  switch (tile) {
+    case 8:
+      return launch_bwd<8>(r, starts, ends, order, out_saved, g_out, gch,
+                           zbuf, grad, num_tiles, tiles_x, has_clip,
+                           log_clip, clamp_log_om, om_floor, packed16,
+                           stream);
+    case 16:
+      return launch_bwd<16>(r, starts, ends, order, out_saved, g_out, gch,
+                            zbuf, grad, num_tiles, tiles_x, has_clip,
+                            log_clip, clamp_log_om, om_floor, packed16,
+                            stream);
+    case 32:
+      return launch_bwd<32>(r, starts, ends, order, out_saved, g_out, gch,
+                            zbuf, grad, num_tiles, tiles_x, has_clip,
+                            log_clip, clamp_log_om, om_floor, packed16,
+                            stream);
+    default:
+      return launch_bwd<64>(r, starts, ends, order, out_saved, g_out, gch,
+                            zbuf, grad, num_tiles, tiles_x, has_clip,
+                            log_clip, clamp_log_om, om_floor, packed16,
+                            stream);
   }
-  return (int)cudaGetLastError();
 }

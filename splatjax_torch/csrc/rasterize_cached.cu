@@ -13,17 +13,18 @@
 //
 // What bounds it on the H100: as for K2, the per-fragment arithmetic and
 // the deepest tiles' latency; the projection adds about 190 f32 operations
-// per walked instance, 1/256 of a tile's fragments each, and the rows are
+// per walked instance, 1/P of a tile's P fragments each, and the rows are
 // 64 B instead of 32 B. Against stale bins the deepest tile can lose its
 // early stop: at an orbit eye of the 1M-splat 1920x1080 frame it walks
 // 4,793 instances (3,238 at the bins' camera), and that one tile alone
 // sets most of the kernel's time (measured on an H100 SXM at 700 W).
 //
-// Design: the shared fragment loop of composite.cuh (one block per 16x16
-// tile taken heaviest first, two pixels a thread, globally aligned
-// 128-instance chunks split between two thread groups, __syncthreads_or
-// early stop), fed by a row source that loads one cached row and projects
-// it:
+// Design: the shared fragment loop of composite.cuh (one block per tile
+// taken heaviest first, instantiated for tile edges 8, 16, 32 and 64 and
+// chosen by the entry's tile argument; at 16 px two pixels a thread,
+// globally aligned 128-instance chunks split between two thread groups,
+// __syncthreads_or early stop), fed by a row source that loads one cached
+// row and projects it:
 // * the row is [mean xyz, cov6 (xx xy xz yy yz zz), rgb, opacity,
 //   max_scale, 0, 0] (splatjax's pack_cached_rows);
 // * the camera (row-major modelview and projection, width, height) is a
@@ -36,11 +37,11 @@
 //   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
 //   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
 //   it), so a degenerate instance decodes to the same values in both;
-// * the first thread group (128 threads, one row each) projects a chunk's
-//   rows; the second, which composites the chunk's back half, waits at the
-//   barrier. K3 takes about 3% longer than K2 on the same frame, for the
-//   projection and the 64-byte rows together, so the idle group costs at
-//   most that.
+// * the first thread group (128 threads, one row each; 64 threads, two
+//   rows each, at 8 px) projects a chunk's rows; the second, which
+//   composites the chunk's back half, waits at the barrier. K3 takes
+//   about 3% longer than K2 on the same frame, for the projection and the
+//   64-byte rows together, so the idle group costs at most that.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -60,15 +61,6 @@ struct CachedCamera {
   int height;
 };
 
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
 __device__ __forceinline__ float div_rn(float a, float b) {
   return __fdiv_rn(a, b);
 }
@@ -181,9 +173,10 @@ struct CachedRows {
   }
 };
 
-__global__ void __launch_bounds__(THREADS)
+template <int TILE>
+__global__ void __launch_bounds__(Composite<TILE>::THREADS)
 rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
-  composite_tile(src, args);
+  composite_tile<TILE>(src, args);
 }
 
 }  // namespace
@@ -192,16 +185,22 @@ rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
 // mv, pr: host pointers to the row-major 4x4 modelview and projection (read
 // here, passed to the kernel by value); starts/ends: (num_tiles,) int32;
 // order: (num_tiles,) int32 permutation of the tiles, heaviest first; out:
-// (num_tiles, 8, 256) f32.
+// (num_tiles, 8, P) f32, with P = tile * tile. tile: the square tile edge,
+// 8, 16, 32 or 64; any other returns cudaErrorInvalidValue and launches
+// nothing.
 extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
                                           const float* pr, int width,
                                           int height, const int* starts,
                                           const int* ends, const int* order,
                                           float* out,
                                           int num_tiles, int tiles_x,
-                                          int has_clip, float log_clip,
-                                          int clamp_log_om, float log_eps,
+                                          int tile, int has_clip,
+                                          float log_clip, int clamp_log_om,
+                                          float log_eps,
                                           cudaStream_t stream) {
+  if (tile != 8 && tile != 16 && tile != 32 && tile != 64) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (num_tiles == 0) return 0;
   CachedRows src;
   src.prm = reinterpret_cast<const float4*>(prm);
@@ -214,6 +213,18 @@ extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
   const CompositeArgs args{starts,  ends,     order,        nullptr,
                            out,     tiles_x,  has_clip,     log_clip,
                            clamp_log_om, log_eps};
-  rasterize_cached_kernel<<<num_tiles, THREADS, 0, stream>>>(src, args);
-  return (int)cudaGetLastError();
+  switch (tile) {
+    case 8:
+      return launch_composite<8>(rasterize_cached_kernel<8>, num_tiles,
+                                 stream, src, args);
+    case 16:
+      return launch_composite<16>(rasterize_cached_kernel<16>, num_tiles,
+                                  stream, src, args);
+    case 32:
+      return launch_composite<32>(rasterize_cached_kernel<32>, num_tiles,
+                                  stream, src, args);
+    default:
+      return launch_composite<64>(rasterize_cached_kernel<64>, num_tiles,
+                                  stream, src, args);
+  }
 }

@@ -18,7 +18,9 @@
 // half of the whole frame's kernel time; taken heaviest first and walked
 // by 8 warps (composite.cuh), it no longer finishes last.
 //
-// Design: the shared fragment loop of composite.cuh, fed by a row source
+// Design: the shared fragment loop of composite.cuh (instantiated for
+// tile edges 8, 16, 32 and 64, chosen by the entry's tile argument), fed
+// by a row source
 // that loads one 32-byte row (two 16-byte loads) per instance and decodes
 // it (rows.cuh). The 16-byte rows decode exactly as splatjax's
 // unpack_chunk16 (mean at 1/8 px with a 2048 px bias, bf16 conic halves,
@@ -43,10 +45,22 @@ struct PackedRows {
   }
 };
 
-template <bool PACKED16>
-__global__ void __launch_bounds__(THREADS)
+template <int TILE, bool PACKED16>
+__global__ void __launch_bounds__(Composite<TILE>::THREADS)
 rasterize_fwd_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
-  composite_tile(src, args);
+  composite_tile<TILE>(src, args);
+}
+
+template <int TILE>
+int launch_fwd(const int4* rows, const CompositeArgs& args, int num_tiles,
+               int packed16, cudaStream_t stream) {
+  if (packed16) {
+    return launch_composite<TILE>(rasterize_fwd_kernel<TILE, true>,
+                                  num_tiles, stream, PackedRows<true>{rows},
+                                  args);
+  }
+  return launch_composite<TILE>(rasterize_fwd_kernel<TILE, false>, num_tiles,
+                                stream, PackedRows<false>{rows}, args);
 }
 
 }  // namespace
@@ -54,25 +68,28 @@ rasterize_fwd_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
 // rows: (K, 8) int32 packed instance rows, tile-sorted (16-byte training
 // rows when packed16); starts/ends: (num_tiles,) int32; order:
 // (num_tiles,) int32 permutation of the tiles, heaviest first; zbuf:
-// (num_tiles, 256) f32 camera z or null; out: (num_tiles, 8, 256) f32.
+// (num_tiles, P) f32 camera z or null; out: (num_tiles, 8, P) f32, with
+// P = tile * tile. tile: the square tile edge, 8, 16, 32 or 64; any other
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int splat_rasterize_fwd(const int* rows, const int* starts,
                                    const int* ends, const int* order,
                                    const float* zbuf,
                                    float* out, int num_tiles, int tiles_x,
-                                   int has_clip, float log_clip,
+                                   int tile, int has_clip, float log_clip,
                                    int clamp_log_om, float log_eps,
                                    int packed16, cudaStream_t stream) {
+  if (tile != 8 && tile != 16 && tile != 32 && tile != 64) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (num_tiles == 0) return 0;
   const int4* r = reinterpret_cast<const int4*>(rows);
   const CompositeArgs args{starts,  ends,     order,        zbuf,
                            out,     tiles_x,  has_clip,     log_clip,
                            clamp_log_om, log_eps};
-  if (packed16) {
-    rasterize_fwd_kernel<true><<<num_tiles, THREADS, 0, stream>>>(
-        PackedRows<true>{r}, args);
-  } else {
-    rasterize_fwd_kernel<false><<<num_tiles, THREADS, 0, stream>>>(
-        PackedRows<false>{r}, args);
+  switch (tile) {
+    case 8: return launch_fwd<8>(r, args, num_tiles, packed16, stream);
+    case 16: return launch_fwd<16>(r, args, num_tiles, packed16, stream);
+    case 32: return launch_fwd<32>(r, args, num_tiles, packed16, stream);
+    default: return launch_fwd<64>(r, args, num_tiles, packed16, stream);
   }
-  return (int)cudaGetLastError();
 }

@@ -52,26 +52,62 @@ __device__ __forceinline__ Decoded decode_row(const int4* __restrict__ rows,
   return d;
 }
 
+// f32 operations rounded one by one, which nvcc never contracts into an
+// FMA: the order and rounding of the plain PyTorch versions.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
+// Whether a rasterizer at tile edge TILE evaluates the power polynomial op
+// by op (EXACT below). At 16 px nvcc's FMA contraction keeps the kernels
+// within 1e-4 of their plain versions; wider tiles put pixels up to 31.5
+// px from the tile centre, the polynomial's terms grow with that offset,
+// and a contracted power then lands across the exp(-4) cutoff from the
+// plain version's often enough to fail that check on an H100.
+template <int TILE>
+struct ExactPower {
+  static constexpr bool value = TILE > 16;
+};
+
 // Instance d's power polynomial in tile-centred coordinates, (mxl, myl) =
 // its mean minus the tile centre: pw = (c0, c1, c2, c3), ct = (c4, c5,
 // log-alpha threshold, depth), with log alpha = c0 + c1 x + c2 y + c3 x^2
-// + c4 xy + c5 y^2 (splatjax's coefficient formulation).
+// + c4 xy + c5 y^2 (splatjax's coefficient formulation). EXACT: each
+// operation rounded on its own, in the plain version's order.
+template <bool EXACT>
 __device__ __forceinline__ void power_records(const Decoded& d, float mxl,
                                               float myl, float4& pw,
                                               float4& ct) {
   const float ca = d.ca, cb = d.cb, cc = d.cc;
   const float lnopa = logf(fmaxf(d.opa, 1e-30f));
-  pw = make_float4(
-      -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa,
-      ca * mxl + cb * myl, cc * myl + cb * mxl, -0.5f * ca);
+  if constexpr (EXACT) {
+    const float q = add_rn(mul_rn(mul_rn(ca, mxl), mxl),
+                           mul_rn(mul_rn(cc, myl), myl));
+    pw = make_float4(
+        add_rn(sub_rn(mul_rn(-0.5f, q), mul_rn(mul_rn(cb, mxl), myl)),
+               lnopa),
+        add_rn(mul_rn(ca, mxl), mul_rn(cb, myl)),
+        add_rn(mul_rn(cc, myl), mul_rn(cb, mxl)), -0.5f * ca);
+  } else {
+    pw = make_float4(
+        -0.5f * (ca * mxl * mxl + cc * myl * myl) - cb * mxl * myl + lnopa,
+        ca * mxl + cb * myl, cc * myl + cb * mxl, -0.5f * ca);
+  }
   ct = make_float4(-cb, -0.5f * cc, lnopa - 4.0f, d.depth);
 }
 
 // An instance's log alpha before the clip at a thread's N pixels (x, y[j])
 // from its records, term for term in this order: another association or
-// FMA contraction flips fragments on the exp(-4) cutoff. hit[j]: inside
-// the support and in front of the z-buffer. Returns whether any is hit.
-template <int N>
+// FMA contraction flips fragments on the exp(-4) cutoff (EXACT: no
+// contraction). hit[j]: inside the support and in front of the z-buffer.
+// Returns whether any is hit.
+template <bool EXACT, int N>
 __device__ __forceinline__ bool eval_power(const float4 pw, const float4 ct,
                                            float x, float xx,
                                            const float (&y)[N],
@@ -82,8 +118,16 @@ __device__ __forceinline__ bool eval_power(const float4 pw, const float4 ct,
   bool any = false;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    power[j] = pw.x + pw.y * x + pw.z * y[j] + pw.w * xx + ct.x * xy[j] +
-               ct.y * yy[j];
+    if constexpr (EXACT) {
+      float p = add_rn(pw.x, mul_rn(pw.y, x));
+      p = add_rn(p, mul_rn(pw.z, y[j]));
+      p = add_rn(p, mul_rn(pw.w, xx));
+      p = add_rn(p, mul_rn(ct.x, xy[j]));
+      power[j] = add_rn(p, mul_rn(ct.y, yy[j]));
+    } else {
+      power[j] = pw.x + pw.y * x + pw.z * y[j] + pw.w * xx + ct.x * xy[j] +
+                 ct.y * yy[j];
+    }
     hit[j] = power[j] >= ct.z && ct.w > zb[j];
     any |= hit[j];
   }

@@ -8,9 +8,10 @@ flags, so an edited source builds anew at first use; the build goes to
 loaded at import time.
 
 ``LAUNCHES`` counts kernel launches per kernel (a library can hold more
-than one); each wrapper adds one where it launches its kernel, and nowhere
-else. :func:`timed_launches` brackets the launches of one C entry with
-CUDA events, for timing a kernel apart from its wrapper.
+than one; the rasterizers K2, K3 and K4 count each tile edge apart,
+:func:`tiled_counter`); each wrapper adds one where it launches its
+kernel, and nowhere else. :func:`timed_launches` brackets the launches of
+one C entry with CUDA events, for timing a kernel apart from its wrapper.
 """
 from __future__ import annotations
 
@@ -39,11 +40,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The square tile edges the rasterizers (K2, K3, K4) are instantiated for,
+# and the default one.
+TILE_EDGES = (8, 16, 32, 64)
+DEFAULT_TILE = 16
+# the counters of the kernels that are instantiated per tile edge
+_TILED = ("rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
+          "rasterize_bwd")
+
 # counter -> launches: K1, K2 (32-byte rows), K2 (16-byte rows), K3, K4,
-# K5, K6, K7
+# K5, K6, K7 (K2, K3 and K4 at the default tile edge), then K2, K3 and K4
+# at each other edge as "<counter>@<edge>"
 LAUNCHES = {name: 0 for name in (
     "expand", "rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
     "rasterize_bwd", "segreduce_rows", "segreduce_u16", "segreduce_bf16",
+    *(f"{n}@{t}" for t in TILE_EDGES if t != DEFAULT_TILE for n in _TILED),
 )}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -148,6 +159,12 @@ def timed_launches(lib: str, name: str) -> Iterator[list]:
         yield pairs
     finally:
         _functions[key] = raw
+
+
+def tiled_counter(name: str, tile: int) -> str:
+    """The launch counter of rasterizer ``name`` (K2, K3 or K4) at tile
+    edge ``tile``: ``name`` at the default edge, ``name@tile`` else."""
+    return name if tile == DEFAULT_TILE else f"{name}@{tile}"
 
 
 def check_launch(counter: str, err: int) -> None:

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from splatjax_torch.kernels import DEFAULT_TILE, TILE_EDGES
 from splatjax_torch.ops.expand import expand_instances
 from splatjax_torch.ops.projection import ProjectedGaussians
 from splatjax_torch.ops.segreduce import (
@@ -60,26 +61,31 @@ def _grad_gather_mode() -> str:
 # 0: mean2d.x  1: mean2d.y  2: conic.a  3: conic.b  4: conic.c
 # 5: color.r   6: color.g   7: color.b  8: opacity  9: depth  10-15: pad
 FEAT_DIM = 16
-# The CUDA rasterizer runs one thread per pixel of a 16x16 tile.
-TILE = 16
 # Where the int32 instance cumsums saturate. Kernel indices are int32, so a
 # capacity is always below it.
 CUM_MAX = 2 ** 31 - 1
+
+
+def check_tile_edge(tile_w: int, tile_h: Optional[int] = None) -> None:
+    """Raise ``ValueError`` unless the tile is square with an edge the CUDA
+    rasterizers are instantiated for (``TILE_EDGES``). splatjax takes any
+    edge; the port takes these."""
+    tile_h = tile_w if tile_h is None else tile_h
+    if tile_w != tile_h or tile_w not in TILE_EDGES:
+        raise ValueError(
+            "splatjax_torch renders square tiles with an edge in "
+            f"{TILE_EDGES} px, got {tile_w}x{tile_h}")
 
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     width: int
     height: int
-    tile_w: int = TILE
-    tile_h: int = TILE
+    tile_w: int = DEFAULT_TILE
+    tile_h: int = DEFAULT_TILE
 
     def __post_init__(self):
-        if (self.tile_w, self.tile_h) != (TILE, TILE):
-            raise ValueError(
-                f"splatjax_torch renders {TILE}x{TILE} tiles only, got "
-                f"{self.tile_w}x{self.tile_h}"
-            )
+        check_tile_edge(self.tile_w, self.tile_h)
 
     @property
     def tiles_x(self) -> int:

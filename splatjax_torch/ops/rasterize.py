@@ -44,19 +44,25 @@ MEAN16_STEP = 0.125  # 16-byte rows: px per fixed-point mean unit
 MEAN16_BIAS = 2048.0  # 16-byte rows: px added before quantizing the mean
 # log1p(-alpha) floor standing in for an opaque fragment (alpha == 1)
 _LOG_OM_MIN = -60.0
-# tiles per step of the plain version: bounds its (tiles, P, CHUNK) f32
-# temporaries to 32 MB each
-_PLAIN_TILE_BATCH = 256
+# pixels per step of the plain versions: a step of _plain_tile_batch(P)
+# tiles of P pixels bounds their (tiles, P, CHUNK) f32 temporaries to 32 MB
+# each at every tile edge
+_PLAIN_BATCH_PIXELS = 65536
+
+
+def _plain_tile_batch(pixels_per_tile: int) -> int:
+    return max(1, _PLAIN_BATCH_PIXELS // pixels_per_tile)
+
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_int, ctypes.c_void_p]
 )
 _CACHED_ARGTYPES = (
     [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_float)] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_void_p]
 )
 
@@ -261,13 +267,13 @@ def _rasterize_fwd(rows, starts, ends, order: Optional[torch.Tensor],
             rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
             order.data_ptr(), None if zbuf is None else zbuf.data_ptr(),
             out.data_ptr(),
-            cfg.num_tiles, cfg.tiles_x, int(lc is not None),
+            cfg.num_tiles, cfg.tiles_x, cfg.tile_w, int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
             int(packed16), kernels.stream_of(dev),
         )
-    kernels.check_launch("rasterize_fwd16" if packed16 else "rasterize_fwd",
-                         err)
+    kernels.check_launch(kernels.tiled_counter(
+        "rasterize_fwd16" if packed16 else "rasterize_fwd", cfg.tile_w), err)
     return out
 
 
@@ -310,8 +316,9 @@ def _composite_plain(decode, k_rows: int, starts: torch.Tensor,
     log_eps = _log_eps(early_stop)
     lane = torch.arange(CHUNK, device=dev)
     outs = []
-    for b0 in range(0, tiles.shape[0], _PLAIN_TILE_BATCH):
-        tb = tiles[b0:b0 + _PLAIN_TILE_BATCH]
+    batch = _plain_tile_batch(p_n)
+    for b0 in range(0, tiles.shape[0], batch):
+        tb = tiles[b0:b0 + batch]
         nb = tb.shape[0]
         st = starts[tb].long()
         en = ends[tb].long()
@@ -541,12 +548,13 @@ def _rasterize_cached_fwd(prm, camera: CachedCamera, starts, ends,
             prm.data_ptr(), mat(*camera.modelview), mat(*camera.projection),
             camera.width, camera.height, starts.data_ptr(), ends.data_ptr(),
             order.data_ptr(), out.data_ptr(), cfg.num_tiles, cfg.tiles_x,
-            int(lc is not None),
+            cfg.tile_w, int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), _log_eps(early_stop),
             kernels.stream_of(dev),
         )
-    kernels.check_launch("rasterize_cached", err)
+    kernels.check_launch(kernels.tiled_counter("rasterize_cached",
+                                               cfg.tile_w), err)
     return out
 
 
@@ -570,8 +578,9 @@ def rasterize_cached_fwd_plain(prm: torch.Tensor, camera: CachedCamera,
 
 
 def pixel_coords(cfg: TileConfig, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """(P,) tile-centred pixel coordinates: half-integers in [-7.5, 7.5],
-    exact in f32 (the kernels' basis origin)."""
+    """(P,) tile-centred pixel coordinates: half-integers in
+    [-(edge - 1) / 2, (edge - 1) / 2], exact in f32 (the kernels' basis
+    origin)."""
     pix = torch.arange(cfg.pixels_per_tile, device=dev)
     x = (pix % cfg.tile_w).to(torch.float32) + 0.5 - 0.5 * cfg.tile_w
     y = (pix // cfg.tile_w).to(torch.float32) + 0.5 - 0.5 * cfg.tile_h

@@ -45,8 +45,8 @@ from splatjax_torch.ops.binning import (
 from splatjax_torch.ops.rasterize import (
     CHUNK,
     _LOG_OM_MIN,
-    _PLAIN_TILE_BATCH,
     _check_raster_inputs,
+    _plain_tile_batch,
     _rasterize_fwd,
     clip_bounds_alpha,
     decode_rows,
@@ -62,7 +62,7 @@ from splatjax_torch.ops.segreduce import PACKED_PLANES
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
     + [ctypes.c_void_p]
 )
 
@@ -145,12 +145,13 @@ def _rasterize_bwd(rows, starts, ends, order: Optional[torch.Tensor],
             order.data_ptr(), out_saved.data_ptr(), g_out.data_ptr(),
             g_out.shape[1],
             None if zbuf is None else zbuf.data_ptr(), grad.data_ptr(),
-            cfg.num_tiles, cfg.tiles_x, int(lc is not None),
+            cfg.num_tiles, cfg.tiles_x, cfg.tile_w, int(lc is not None),
             0.0 if lc is None else lc,
             int(not clip_bounds_alpha(alpha_clip)), int(_om_floor(alpha_clip)),
             int(packed16), kernels.stream_of(dev),
         )
-    kernels.check_launch("rasterize_bwd", err)
+    kernels.check_launch(kernels.tiled_counter("rasterize_bwd", cfg.tile_w),
+                         err)
     return grad
 
 
@@ -182,8 +183,9 @@ def rasterize_bwd_plain(rows: torch.Tensor, starts: torch.Tensor,
     clamp = not clip_bounds_alpha(alpha_clip)
     floor = _om_floor(alpha_clip)
     lane = torch.arange(CHUNK, device=dev)
-    for b0 in range(0, tiles.shape[0], _PLAIN_TILE_BATCH):
-        tb = tiles[b0:b0 + _PLAIN_TILE_BATCH]
+    batch = _plain_tile_batch(cfg.pixels_per_tile)
+    for b0 in range(0, tiles.shape[0], batch):
+        tb = tiles[b0:b0 + batch]
         st = starts[tb].long()
         en = ends[tb].long()
         astart = st // CHUNK * CHUNK

@@ -34,6 +34,7 @@ from splatjax_torch.camera import Camera
 from splatjax_torch.ops.binning import (
     TileConfig,
     bin_gaussians,
+    check_tile_edge,
     features_from_projection,
 )
 from splatjax_torch.ops.projection import (
@@ -190,6 +191,7 @@ def max_band_rows(height: int, n_devices: int, tile: int) -> int:
 def _band_layout(height: int, n_dev: int, tile: int, balance: str
                  ) -> tuple[int, int]:
     """(tile rows per band, tile rows the bands partition)."""
+    check_tile_edge(tile)
     if balance == "load":
         return max_band_rows(height, n_dev, tile), -(-height // tile)
     if balance == "equal":

@@ -174,6 +174,7 @@ def render(
     scene: GaussianScene,
     camera: Camera,
     *,
+    tile_size: int = 16,
     capacity: Optional[int] = None,
     alpha_clip="auto",
     early_stop: float = 1e-4,
@@ -188,7 +189,9 @@ def render(
 ):
     """Render a scene with the tiled pipeline on the scene's device.
 
-    Args (as ``splatjax.render.render``; tiles are always 16x16):
+    Args (as ``splatjax.render.render``):
+      tile_size: square tile edge in pixels, 8, 16, 32 or 64 (splatjax
+        takes any edge; the port's kernels are instantiated for these).
       capacity: static instance-buffer size (None -> 4x N). Instances past
         it are dropped, depth-farthest first; ``return_overflow=True``
         returns their count as a 0-d int64 tensor.
@@ -227,7 +230,7 @@ def render(
         support_eps=None if viewer_exact else early_stop,
     )
     return _outputs(*_render_projected(
-        proj, TileConfig(w, h),
+        proj, TileConfig(w, h, tile_size, tile_size),
         capacity=capacity,
         alpha_clip=resolve_alpha_clip(alpha_clip, viewer_exact),
         early_stop=early_stop,
@@ -254,6 +257,7 @@ def render_instances(
     instances,
     camera: Camera,
     *,
+    tile_size: int = 16,
     capacity: Optional[int] = None,
     alpha_clip="auto",
     early_stop: float = 1e-4,
@@ -280,7 +284,8 @@ def render_instances(
         capacity = default_capacity(total)
     fb = resolve_feature_bytes(feature_bytes, False)
     if total == 0:
-        return render(norm[0][0], camera, return_depth=return_depth,
+        return render(norm[0][0], camera, tile_size=tile_size,
+                      return_depth=return_depth,
                       return_overflow=return_overflow)
     w, h = camera.width, camera.height
     mv0 = camera.modelview.to(dev, torch.float32)
@@ -296,7 +301,7 @@ def render_instances(
         for f in dataclasses.fields(ProjectedGaussians)
     })
     return _outputs(*_render_projected(
-        proj, TileConfig(w, h),
+        proj, TileConfig(w, h, tile_size, tile_size),
         capacity=capacity,
         alpha_clip=resolve_alpha_clip(alpha_clip, False),
         early_stop=early_stop,
@@ -353,6 +358,7 @@ def bin_scene(
     scene: GaussianScene,
     camera: Camera,
     *,
+    tile_size: int = 16,
     capacity: Optional[int] = None,
     viewer_exact: bool = False,
     cutout=None,
@@ -363,7 +369,9 @@ def bin_scene(
     :func:`render_binned`: the port's ``BinnedInstances``, or with
     ``cache_params=True`` a :class:`CachedBins` that also holds every
     instance's camera-independent parameters (about 120 B per instance).
-    Not differentiable (an index)."""
+    ``tile_size`` as :func:`render`; draw the bins with the same edge. Not
+    differentiable (an index)."""
+    cfg = TileConfig(camera.width, camera.height, tile_size, tile_size)
     dev = scene.device
     if capacity is None:
         capacity = default_capacity(scene.num_gaussians)
@@ -375,8 +383,7 @@ def bin_scene(
             cutout=_as_tensor(cutout, dev),
             support_eps=None if viewer_exact else early_stop,
         )
-        bins = bin_gaussians(proj, TileConfig(camera.width, camera.height),
-                             capacity)
+        bins = bin_gaussians(proj, cfg, capacity)
         if not cache_params:
             return bins
         return _gather_param_cache(scene, bins, viewer_exact)
@@ -387,6 +394,7 @@ def render_binned(
     camera: Camera,
     bins,
     *,
+    tile_size: int = 16,
     alpha_clip="auto",
     early_stop: float = 1e-4,
     viewer_exact: bool = False,
@@ -405,14 +413,23 @@ def render_binned(
     ``scene`` and project the cached per-instance parameters, not
     differentiably: with 16-byte rows and no sh, cutout, zbuf,
     viewer_exact or depth that is one kernel (K3), else a projection, a
-    row pack without gather and K2 (splatjax's condition)."""
+    row pack without gather and K2 (splatjax's condition).
+
+    ``tile_size`` must be the edge the bins were built with, at
+    ``camera``'s viewport: bins of another tile grid raise ``ValueError``
+    (splatjax draws them without a check)."""
     fb = resolve_feature_bytes(feature_bytes, viewer_exact)
     clip = resolve_alpha_clip(alpha_clip, viewer_exact)
     cached = isinstance(bins, CachedBins)
     b = bins.bins if cached else bins
     dev = b.starts.device
     w, h = camera.width, camera.height
-    cfg = TileConfig(w, h)
+    cfg = TileConfig(w, h, tile_size, tile_size)
+    if b.starts.numel() != cfg.num_tiles:
+        raise ValueError(
+            f"bins hold {b.starts.numel()} tiles, but {w}x{h} at tile_size "
+            f"{tile_size} has {cfg.num_tiles}: draw bins with the viewport "
+            "and tile_size they were built for")
     bg = _as_tensor(background, dev)
     if cached and fb == 16 and bins.sh is None and cutout is None \
             and zbuf is None and not viewer_exact and not return_depth:
@@ -454,6 +471,7 @@ def render_stereo(
     camera_right: Camera,
     *,
     xr_pixel_ratio: float = 0.5,
+    tile_size: int = 16,
     capacity: Optional[int] = None,
     alpha_clip="auto",
     early_stop: float = 1e-4,
@@ -471,11 +489,12 @@ def render_stereo(
     approximation, not a parity mode). Returns (img_left, img_right)."""
     cl = _scale_camera(camera_left, xr_pixel_ratio)
     cr = _scale_camera(camera_right, xr_pixel_ratio)
-    kw = dict(alpha_clip=alpha_clip, early_stop=early_stop,
-              viewer_exact=viewer_exact, feature_bytes=feature_bytes,
-              cutout=cutout, background=background)
+    kw = dict(tile_size=tile_size, alpha_clip=alpha_clip,
+              early_stop=early_stop, viewer_exact=viewer_exact,
+              feature_bytes=feature_bytes, cutout=cutout,
+              background=background)
     if shared_bins:
-        bins = bin_scene(scene, cl, capacity=capacity,
+        bins = bin_scene(scene, cl, tile_size=tile_size, capacity=capacity,
                          viewer_exact=viewer_exact, cutout=cutout,
                          early_stop=early_stop)
         return (render_binned(scene, cl, bins, **kw),

@@ -74,16 +74,17 @@ class SplatRenderer:
         resolution; the returned image is simply smaller).
       xr_pixel_ratio: the scale used by ``render(..., xr=True)``.
       max_splats: truncation like the viewer's texture capacity.
-      capacity / alpha_clip / early_stop / viewer_exact / feature_bytes /
-        background: see :func:`splatjax_torch.render.render`.
+      capacity / alpha_clip / early_stop / viewer_exact / tile_size /
+        feature_bytes / background: see
+        :func:`splatjax_torch.render.render`.
       progress: optional callback taking each
         :class:`splatjax_torch.io.stream.StreamProgress` of a ``src``
         load, the last one with ``done=True``.
       resort_interval: 1 renders the exact per-frame sort; N > 1 rebuilds
         a cached tile index (``bin_scene(cache_params=True)``) every N
-        frames and whenever the scene object or the viewport changes, and
-        redraws the frames between with ``render_binned`` (16-byte rows:
-        one K3 launch per frame).
+        frames and whenever the scene object, the viewport or the tile
+        edge changes, and redraws the frames between with
+        ``render_binned`` (16-byte rows: one K3 launch per frame).
       device: where a ``src`` or ``feed()`` scene is loaded.
     """
 
@@ -98,6 +99,7 @@ class SplatRenderer:
     early_stop: float = 1e-4
     viewer_exact: bool = False
     feature_bytes: object = "auto"
+    tile_size: int = 16
     background: Optional[object] = None
     progress: Optional[object] = None
     resort_interval: int = 1
@@ -109,7 +111,7 @@ class SplatRenderer:
         self._parts: list[GaussianScene] = []
         self._fed = 0
         self._bins = None             # cached tile index (resort_interval>1)
-        self._bins_key = None         # (scene object, width, height)
+        self._bins_key = None         # (scene object, width, height, tile)
         self._frames_since_sort = 0
         if self.src is not None:
             chunks = stream_chunks(self.src, progress=self.progress)
@@ -181,6 +183,7 @@ class SplatRenderer:
                 stacklevel=2,
             )
         kw = dict(
+            tile_size=self.tile_size,
             capacity=self.capacity,
             alpha_clip=self.alpha_clip,
             early_stop=self.early_stop,
@@ -194,12 +197,14 @@ class SplatRenderer:
 
     def _render_stale_order(self, camera: Camera):
         """A frame against a possibly stale tile index, rebuilt every
-        ``resort_interval`` frames and whenever the scene or the viewport
-        changes; projection and shading are always the frame's own."""
+        ``resort_interval`` frames and whenever the scene, the viewport or
+        the tile edge changes; projection and shading are always the
+        frame's own."""
         # the key holds the scene object itself (compared with `is`), not
         # its id(), which can be reused once the object is freed; feed()
-        # always builds a new scene object
-        key = (self.scene, camera.width, camera.height)
+        # always builds a new scene object. The tile edge is in it too, so
+        # a changed tile_size rebuilds the index
+        key = (self.scene, camera.width, camera.height, self.tile_size)
         if (
             self._bins is None
             or self._bins_key[0] is not key[0]
@@ -207,7 +212,8 @@ class SplatRenderer:
             or self._frames_since_sort >= self.resort_interval
         ):
             self._bins = bin_scene(
-                self.scene, camera, capacity=self.capacity,
+                self.scene, camera, tile_size=self.tile_size,
+                capacity=self.capacity,
                 viewer_exact=self.viewer_exact, cutout=self.cutout,
                 early_stop=self.early_stop, cache_params=True,
             )
@@ -215,7 +221,8 @@ class SplatRenderer:
             self._frames_since_sort = 0
         self._frames_since_sort += 1
         return render_binned(
-            self.scene, camera, self._bins, alpha_clip=self.alpha_clip,
+            self.scene, camera, self._bins, tile_size=self.tile_size,
+            alpha_clip=self.alpha_clip,
             early_stop=self.early_stop, viewer_exact=self.viewer_exact,
             feature_bytes=self.feature_bytes, cutout=self.cutout,
             background=self.background,

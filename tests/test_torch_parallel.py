@@ -11,10 +11,11 @@ imports no jax at its top, because each rank imports it (and
 references are imported inside the tests.
 
 Tolerances (those of ``tests/test_distributed.py``): images within 1e-4
-of splatjax's sharded render (1e-5 on the balanced scene, against the
-port's one-card render); all_to_all against all_gather within 1e-6;
-overflow vectors and band bounds equal; gradients within 2e-3 of the
-largest, relative 2e-3; every rank's outputs bit-identical.
+of splatjax's sharded render (1e-5 on the balanced scene, and 1e-4 at
+32 px tiles, against the port's one-card render); all_to_all against
+all_gather within 1e-6; overflow vectors and band bounds equal; gradients
+within 2e-3 of the largest, relative 2e-3; every rank's outputs
+bit-identical.
 """
 import dataclasses
 import os
@@ -123,6 +124,19 @@ def _case_height40(rank):
 
     return _render_case(make_mesh(4, device="cpu"), _t_scene(256, 63),
                         _t_cam(h=40), early_stop=0.0)
+
+
+def _case_tile32(rank):
+    from splatjax_torch.parallel import make_mesh, render_sharded
+
+    mesh = make_mesh(4, device="cpu")
+    scene, cam = _t_scene(256, 65), _t_cam(h=96)
+    out = {}
+    for bal in ("load", "equal"):
+        out[f"img_{bal}"], out[f"ov_{bal}"] = render_sharded(
+            scene, cam, mesh, tile_size=32, balance=bal, early_stop=0.0,
+            return_overflow=True)
+    return out
 
 
 def _case_sh(rank):
@@ -264,6 +278,7 @@ _CASES = {
     "render2": _case_render2,
     "render2d": _case_render2d,
     "height40": _case_height40,
+    "tile32": _case_tile32,
     "sh": _case_sh,
     "pair": _case_pair_capacity,
     "bincap": _case_bin_capacity,
@@ -406,6 +421,20 @@ def test_render_sharded_uneven_height(ranks):
                       early_stop=0.0)
     assert want[0].shape == (40, W, 4)
     _check_render(ranks, "height40", want)
+
+
+def test_render_sharded_tile32_four_ranks(ranks):
+    """32 px tiles (3 tile rows over 4 bands): both band layouts within
+    1e-4 of the port's one-card render at that edge, nothing dropped."""
+    import splatjax_torch as st
+
+    want = st.render(_t_scene(256, 65), _t_cam(h=96), tile_size=32,
+                     early_stop=0.0).numpy()
+    for bal in ("load", "equal"):
+        np.testing.assert_allclose(_get(ranks, "tile32", f"img_{bal}"),
+                                   want, atol=1e-4)
+        np.testing.assert_array_equal(_get(ranks, "tile32", f"ov_{bal}"),
+                                      np.zeros(WORLD))
 
 
 def test_render_sharded_with_sh(ranks):

@@ -178,5 +178,5 @@ def test_wrapper_rejects_bad_inputs(binned):
         tr.rasterize_fwd(rows, starts.long(), ends, cfg)
     with pytest.raises(ValueError, match="ends"):
         tr.rasterize_fwd(rows, starts, ends[:-1], cfg)
-    with pytest.raises(ValueError, match="16x16"):
-        TileConfig(W, H, 8, 8)
+    with pytest.raises(ValueError, match="8, 16, 32, 64"):
+        TileConfig(W, H, 12, 12)
