@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. K2 (forward rasterize), 32-byte and 16-byte rows, against its plain
      version: <= 1e-4 on r, g, b, T and depth, chunks_done equal, on 64
      sampled tiles of the full-width frame and on every tile of 192x128
-     frames;
+     frames; chunks_done one value over every pixel of every tile of the
+     full-width frame;
   4. K4 (backward rasterize) against its plain version: every tile of the
      192x128 gate scene for both row widths, clip 0.999 and none, with and
      without a z-buffer, with 4- and 8-channel cotangents; then the
@@ -117,10 +118,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         3 K1 and no K2, the clipped frame unlike the full one,
         demo_train's held-out PSNR above its start), every PNG decoded
         back to its frame (K1, K2, K2 16-byte, K3, K4, K7);
-     j. tile edges: K2 (32- and 16-byte rows), K3 and K4 at 8, 32 and 64 px
+     j. tile edges: the registers, local (spill) bytes and largest block of
+        K2 (both widths) and K3 at every edge by cudaFuncGetAttributes (the
+        32 and 64 px thread-block cluster kernels must not spill); K2 (32-
+        and 16-byte rows), K3 and K4 at 8, 32 and 64 px
         tiles against their plain versions on every tile of the 192x128 gate
-        scene and on the full-width frame (as phases 3, 4 and 8), the
-        parity and gradient gates at each edge; then, counted: a one-rank
+        scene and on the full-width frame (as phases 3, 4 and 8; chunks_done
+        one value over every pixel of every tile of the full frame, for K2
+        and K3 at every edge), the parity and gradient gates at each edge,
+        the tail diagnostics at 32 and 64 px; then, counted: a one-rank
         ``render_sharded(tile_size=32)`` within 1e-4 of ``render()``, and
         at 8, 16, 32 and 64 px 10 serving frames through
         ``SplatRenderer(tile_size=t)``, L1 + Adam steps of
@@ -508,6 +514,21 @@ def compare_k2(out_k, out_p, what, kernel="K2", tol=K2_TOL):
     return err
 
 
+def check_chunks_uniform(out, what, kernel="K2"):
+    """Output row 4 (chunks_done) must be one value over every pixel of
+    every tile: the tile stops at once, and K4 re-walks the chunks_done it
+    reads at the tile's pixel 0."""
+    import torch
+
+    done = out[:, 4]
+    if not torch.equal(done, done[:, :1].expand_as(done)):
+        bad = int((done != done[:, :1]).any(dim=1).sum())
+        raise AssertionError(f"{kernel} chunks_done varies within {bad} "
+                             f"tiles ({what})")
+    log(f"[{kernel.lower()}] {what}: chunks_done one value a tile over all "
+        f"{out.shape[0]} tiles")
+
+
 def walked_per_tile(b, out):
     """Instances K2 walked in each tile, (T,) int64: [start, min(end,
     astart + 128 chunks_done)), with ``out`` its output on ``b``'s bounds."""
@@ -574,6 +595,8 @@ def check_k2_full(scene, cam, capacity, packed16, tile=16):
                      f"{16 if packed16 else 32}-byte rows, {tiles.numel()} "
                      f"sampled tiles of {cfg.width}x{cfg.height}"
                      + at_tile(tile))
+    check_chunks_uniform(out_k, f"{16 if packed16 else 32}-byte rows, full "
+                         f"frame" + at_tile(tile))
     ms, timed = kernel_ms(lambda: rasterize_fwd(*args, packed16), 10,
                            ("rasterize_fwd", "splat_rasterize_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_fwd_plain(*args,
@@ -657,6 +680,8 @@ def check_k3_full(scene, cam, capacity, tile=16):
     err = compare_k2(out_k[tiles], out_p,
                      f"{tiles.numel()} sampled tiles of {WIDTH}x{HEIGHT} at "
                      "an orbit eye" + at_tile(tile), kernel="K3", tol=K3_TOL)
+    check_chunks_uniform(out_k, "full frame at an orbit eye" + at_tile(tile),
+                         kernel="K3")
     ms, timed = kernel_ms(lambda: rasterize_cached_fwd(*args), 10,
                            ("rasterize_cached", "splat_rasterize_cached_fwd"))
     plain_ms = cuda_ms(lambda: rasterize_cached_fwd_plain(*args), 1)
@@ -824,16 +849,16 @@ def check_k4_full(scene, cam, capacity, packed16, tile=16):
                 bound_by=b_by), b, g_k
 
 
-def tail_diagnostics(scene, cam, capacity):
-    """How the full-width frame's work spreads over its tiles, and whether
-    the rasterizers are tail-bound: the walked-instance distribution per
-    tile; K2 (32-byte rows), K3 (at the bins' camera) and K4 (16-byte rows,
-    as in training) on the deepest tile alone (every other tile given
-    ends = starts; K4 takes the forward's output on those bounds) beside
-    the whole frame; and K4 with its tiles ordered by walked instances (each
-    tile's end cut to its walked end, past which K4 never reads, so the
-    wrapper's order by list length becomes the order by walked instances)
-    against the bins' order."""
+def tail_diagnostics(scene, cam, capacity, tile=16):
+    """How the full-width frame's work spreads over its tiles at tile edge
+    ``tile``, and whether the rasterizers are tail-bound: the
+    walked-instance distribution per tile; K2 (32-byte rows), K3 (at the
+    bins' camera) and K4 (16-byte rows, as in training) on the deepest tile
+    alone (every other tile given ends = starts; K4 takes the forward's
+    output on those bounds) beside the whole frame; and K4 with its tiles
+    ordered by walked instances (each tile's end cut to its walked end,
+    past which K4 never reads, so the wrapper's order by list length
+    becomes the order by walked instances) against the bins' order."""
     import torch
     from splatjax_torch.ops.binning import features_from_projection
     from splatjax_torch.ops.rasterize import (
@@ -841,7 +866,7 @@ def tail_diagnostics(scene, cam, capacity):
     )
     from splatjax_torch.ops.rasterize_vjp import rasterize_bwd
 
-    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4)
+    cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, tile=tile)
     with torch.no_grad():
         rows16 = gather_rows(pack_table(features_from_projection(
             projected(scene, cam, 1e-4)), True), b.gauss_id)
@@ -849,7 +874,8 @@ def tail_diagnostics(scene, cam, capacity):
     walked = walked_per_tile(b, rasterize_fwd(rows, b.starts, b.ends, cfg,
                                               **fwd)).double()
     deep = int(walked.argmax())
-    log(f"[tail] walked instances per tile over {cfg.num_tiles} tiles: mean "
+    log(f"[tail] walked instances per tile over {cfg.num_tiles} tiles"
+        f"{at_tile(tile)}: mean "
         f"{float(walked.mean()):.1f}, p99 "
         f"{float(torch.quantile(walked, 0.99)):.1f}, max {int(walked[deep])} "
         f"(tile {deep}, {deep / cfg.num_tiles:.2f} of the way through the "
@@ -859,8 +885,8 @@ def tail_diagnostics(scene, cam, capacity):
     g = torch.Generator(device=rows.device).manual_seed(0)
     g_out = torch.randn((cfg.num_tiles, 4, cfg.pixels_per_tile),
                         generator=g, device=rows.device)
-    cb = cached_bins(scene, cam, capacity)
-    prm, camera, starts3 = k3_args(cb, cam, None, None)[:3]
+    cb = cached_bins(scene, cam, capacity, tile)
+    prm, camera, starts3 = k3_args(cb, cam, None, None, tile)[:3]
     alone3 = starts3.clone()
     alone3[deep] = cb.bins.ends[deep]
     out = {}
@@ -882,7 +908,8 @@ def tail_diagnostics(scene, cam, capacity):
     for k, what in (("k2", "K2 32-byte"), ("k3", "K3 at the bins' camera"),
                     ("k4", "K4 16-byte")):
         (a_ms, a_tr), (f_ms, f_tr) = out[k, "alone"], out[k, "frame"]
-        log(f"[tail] {what}: deepest tile alone {a_ms:.4f} ms ({a_tr}), "
+        log(f"[tail] {what}{at_tile(tile)}: deepest tile alone {a_ms:.4f} "
+            f"ms ({a_tr}), "
             f"whole frame {f_ms:.4f} ms ({f_tr}; {a_ms / f_ms:.3f} of it)")
 
     walked16 = walked_per_tile(b, saved)
@@ -899,7 +926,8 @@ def tail_diagnostics(scene, cam, capacity):
     walk_ms, walk_tr = kernel_ms(
         lambda: rasterize_bwd(rows16, b.starts, walked_ends, *args,
                               packed16=True), 10, ("rasterize_bwd", "splat_rasterize_bwd"))
-    log(f"[tail] K4 16-byte, tiles by list length (the bins' order) "
+    log(f"[tail] K4 16-byte{at_tile(tile)}, tiles by list length (the "
+        "bins' order) "
         f"{len_ms:.4f} ms ({len_tr}), by walked instances {walk_ms:.4f} ms "
         f"({walk_tr}); rows bit-identical")
 
@@ -2633,7 +2661,25 @@ def tile_kernel_checks(gate_scene, gate_cam, scene, cam, start, tile):
         rows["rasterize_bwd"]["max_abs_err"], k4_32["max_abs_err"], err)
     gates = dict(parity=parity_gate(gate_scene, gate_cam, tile, 1 << 16),
                  grad=gradient_gate(gate_scene, gate_cam, tile, 1 << 16))
+    if tile > 16:
+        tail_diagnostics(scene, cam, capacity, tile)
     return rows, gates
+
+
+def rasterizer_registers():
+    """cudaFuncGetAttributes of K2 (both row widths) and K3 at every tile
+    edge, one ``[tiles]`` line each; the cluster instantiations (32 and 64
+    px) must not spill (no local memory)."""
+    from splatjax_torch import kernels
+
+    for tile in kernels.TILE_EDGES:
+        for name in RASTERIZERS[:3]:
+            a = kernels.rasterizer_attributes(name, tile)
+            log(f"[tiles] {name} at {tile} px: {a['num_regs']} registers, "
+                f"{a['local_bytes']} B of local memory a thread, blocks of "
+                f"up to {a['max_threads']} threads")
+            if tile > 16 and a["local_bytes"] > 0:
+                raise AssertionError(f"{name} at {tile} px spills: {a}")
 
 
 def sharded_tile_frames(scene, cam, capacity, tile, workdir):
@@ -2717,7 +2763,7 @@ def tile_edge_drive(scene, cam, start, tile):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     check_frame(img, f"serving frame at {tile} px")
     frame_busy, frame_top = traced_busy(lambda: renderer.render(cam), 5,
-                                        "rasterize_fwd_kernel")
+                                        "rasterize_fwd")
     del renderer, img
 
     params = noisy_start(scene)
@@ -2800,6 +2846,7 @@ def tile_path(gate_scene, gate_cam, scene, cam, start, base_rows, smi,
     from splatjax_torch import kernels
 
     t0 = time.perf_counter()
+    rasterizer_registers()
     rows, gates = {}, {}
     for tile in NEW_EDGES:
         rows[tile], gates[tile] = tile_kernel_checks(

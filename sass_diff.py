@@ -11,8 +11,8 @@ cubin from both trees for ``sm_90a`` at ``-O3``, as
 -sass``. For every kernel of the
 other tree it prints its instruction count and the kernels of this tree
 whose instructions are the same, ignoring addresses and encodings; where
-none is, the count of differing instructions against this tree's 16 px
-instantiation of the same kernel and row width. Needs ``nvcc`` and
+none is, the count of differing instructions against this tree's
+instantiation of the same kernel, tile edge and row width. Needs ``nvcc`` and
 ``cuobjdump`` (CUDA_HOME or /usr/local/cuda), no card.
 """
 from __future__ import annotations
@@ -52,9 +52,11 @@ def disassemble(source: str, workdir: str) -> dict[str, list[str]]:
     return kernels
 
 
-def kernel_key(name: str) -> tuple[str, bool]:
-    """(kernel function, its PACKED16 argument) of a mangled name."""
-    return re.search(r"([a-z_]+_kernel)", name).group(1), "Lb1E" in name
+def kernel_key(name: str) -> tuple[str, int, bool]:
+    """(kernel function, its tile edge, its PACKED16 argument) of a
+    mangled name."""
+    return (re.search(r"([a-z_]+_kernel)", name).group(1),
+            int(re.search(r"ILi(\d+)E", name).group(1)), "Lb1E" in name)
 
 
 def compare(other: str, source: str) -> None:
@@ -66,11 +68,10 @@ def compare(other: str, source: str) -> None:
         print(f"{source}: {kernel_key(name)}: {len(body)} instructions; "
               f"{len(same)} identical here")
         for n, b in ours.items():
-            if not same and "Li16E" in n and kernel_key(n) == kernel_key(
-                    name):
+            if not same and kernel_key(n) == kernel_key(name):
                 differ = sum(x != y for x, y in zip(body, b)) + abs(
                     len(body) - len(b))
-                print(f"  the 16 px instantiation here: {len(b)} "
+                print(f"  the same instantiation here: {len(b)} "
                       f"instructions, {differ} differ position by position")
 
 

@@ -21,18 +21,22 @@
 // Design (splatjax's chunking, the standard CUDA 3DGS tile loop), a
 // template over the square tile edge TILE (8, 16, 32 or 64 px; P = TILE^2
 // pixels, the geometry in Composite<TILE>):
-// * one block per tile, taken heaviest first: block b composites tile
-//   order[b], a permutation of all tiles by descending instance count, so
-//   the deepest tiles start first and the short ones fill in behind them;
-// * each thread owns PIX vertically adjacent pixels, so every shared load
-//   of an instance's features serves all of them; GROUP = P / PIX threads
-//   cover the tile, and the block's two such groups split each chunk's
-//   instances between them, the front 64 and the back 64. At 16 px PIX = 2
-//   and GROUP = 128 (a warp covers a 16x4 patch; 256 threads, so a deep
-//   tile's walk runs on 8 warps). Wider tiles keep the 256-thread block and
-//   raise PIX (8 at 32 px, 32 at 64 px), at the cost of registers: the
-//   64 px instantiation spills its per-pixel arrays to local memory. At
-//   8 px a tile has 64 pixels: PIX = 1, GROUP = 64, 128 threads;
+// * up to 16 px one block composites a tile; at 32 and 64 px a
+//   thread-block cluster does, its CLUSTER blocks each taking a 16x16
+//   sub-block of the tile (4 at 32 px, 16 at 64 px: above the portable
+//   cluster size of 8, opted in at launch), whose kernels are held to 64
+//   registers a thread (4 blocks an SM). Tiles are taken heaviest
+//   first: block (or cluster) b composites tile order[b], a permutation of
+//   all tiles by descending instance count, so the deepest tiles start
+//   first and the short ones fill in behind them;
+// * each thread owns PIX vertically adjacent pixels of its block, so every
+//   shared load of an instance's features serves all of them; GROUP =
+//   pixels / PIX threads cover the block, and the block's two such groups
+//   split each chunk's instances between them, the front 64 and the back
+//   64. At 16 px, and in every block of a cluster, PIX = 2 and GROUP = 128
+//   (a warp covers a 16x4 patch; 256 threads, so a deep tile's walk runs
+//   on 8 warps a block). At 8 px a tile has 64 pixels: PIX = 1, GROUP =
+//   64, 128 threads;
 // * the tile's instances [start, end) are walked in 128-instance chunks
 //   aligned to GLOBAL multiples of 128 from astart = start / 128 * 128, the
 //   chunking splatjax uses, so `chunks_done` (output row 4) is the same
@@ -46,24 +50,42 @@
 // * before each chunk the whole tile stops if no pixel still has
 //   log T > log(early_stop) (__syncthreads_or over both pixels of every
 //   thread of the first group, which carries T; also the barrier that
-//   protects the shared chunk buffer);
+//   protects the shared chunk buffer). A pixel that is dead keeps adding
+//   until its tile stops, as in splatjax, so a cluster votes tile-wide:
+//   each block writes its __syncthreads_or to its shared memory, by chunk
+//   parity, and after one cluster barrier every warp reads the CLUSTER
+//   flags through distributed shared memory. Every block of a cluster
+//   thus runs the same number of chunks, and every pixel of a tile
+//   carries one chunks_done (K4 reads it at the tile's pixel 0);
+// * in a cluster the third record's last lane holds the instance's
+//   support mask (support_mask in rows.cuh): one bit per sub-block its
+//   exp(-4) support can reach, from a rectangle that bounds the f32
+//   power's support. A block skips the chunk's instances whose bit is
+//   clear, which changes no sum. The chunk is not compacted: the groups'
+//   front and back halves stay where they are;
+// * every block of a cluster produces the whole chunk's records itself,
+//   one row a thread of its first group. Splitting that work over the
+//   cluster (block r producing 128 / CLUSTER rows, every block copying the
+//   others' through distributed shared memory after the vote's barrier)
+//   was slower for K2 and for K3 on the H100 (PERF.md, cluster_variants.py);
 // * transmittance is carried in log space (log1p(-alpha), clamped at -60
 //   when the clip does not bound alpha below 1), the within-chunk weight is
 //   exp(s_excl + log alpha), as splatjax computes it; each group sums its
 //   half from its own start, the back half's sums are scaled by exp(the
 //   front half's log-transmittance sum) when the halves are joined, and the
 //   chunk's sum by exp(log T) at the chunk end; the back half's sums go
-//   through shared memory, 20 B a pixel (dynamic shared memory at 64 px,
-//   80 KB, opted in at launch by launch_composite);
+//   through the block's shared memory, 20 B a pixel;
 // * the power is evaluated as c0 + c1 x + c2 y + c3 x^2 + c4 xy + c5 y^2 in
-//   tile-centered coordinates (half-integers, exact in f32), term for term
-//   in this order (another association or FMA contraction flips fragments
-//   on the exp(-4) cutoff), matching splatjax's coefficient formulation so
-//   those fragments fall the same way as in the plain version;
+//   coordinates centred on the whole tile (half-integers, exact in f32),
+//   term for term in this order (another association or FMA contraction
+//   flips fragments on the exp(-4) cutoff), matching splatjax's
+//   coefficient formulation so those fragments fall the same way as in the
+//   plain version;
 // * fragments outside the support have alpha == 0 exactly and are skipped,
 //   which leaves every sum unchanged (a NaN power fails the compare too).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -71,32 +93,48 @@
 
 namespace {
 
+namespace coop = cooperative_groups;
+
 constexpr int CHUNK = 128;
 constexpr int HALF = CHUNK / 2;      // instances of a chunk per group
 constexpr int OUT_ROWS = 8;
 constexpr float LOG_OM_MIN = -60.0f;
 
+// The pixels one block composites, SUB_W x SUB_H: the whole tile up to 16
+// px, a 16x16 sub-block of it above.
+template <int TILE>
+struct SubBlock {
+  static constexpr int W = TILE <= 16 ? TILE : 16;
+  static constexpr int H = W;
+};
+
 // The block geometry of a TILE x TILE tile (see the design notes above).
 template <int TILE>
 struct Composite {
   static constexpr int P = TILE * TILE;
-  static constexpr int PIX = P > CHUNK ? P / CHUNK : 1;  // pixels a thread
-  static constexpr int GROUP = P / PIX;    // threads that cover the tile
+  static constexpr int SUB_W = SubBlock<TILE>::W;
+  static constexpr int SUB_H = SubBlock<TILE>::H;
+  static constexpr int SUB_P = SUB_W * SUB_H;      // pixels of a block
+  static constexpr int CLUSTER = P / SUB_P;        // blocks of a tile
+  static constexpr int PIX = SUB_P > CHUNK ? 2 : 1;  // pixels a thread
+  static constexpr int GROUP = SUB_P / PIX;  // threads that cover the block
   static constexpr int THREADS = 2 * GROUP;
-  // the back half's per-pixel sums: float4 + float a pixel
-  static constexpr int BACK_BYTES = P * (int)(sizeof(float4) + sizeof(float));
-  // above 48 KB of static shared memory a block needs dynamic shared memory
-  static constexpr bool DYNAMIC = BACK_BYTES > 32 * 1024;
-  static constexpr int DYNAMIC_BYTES = DYNAMIC ? BACK_BYTES : 0;
-  static_assert(TILE % 8 == 0 && P % PIX == 0, "tile edge 8, 16, 32 or 64");
-  static_assert(CHUNK % GROUP == 0, "the first group produces a chunk's rows");
+  // resident blocks an SM the cluster kernels' launch bounds ask for:
+  // 1024 threads, a cap of 64 registers a thread (PERF.md: uncapped, K3's
+  // projection takes 68 and fits 3 blocks an SM; capped, it spills nothing
+  // and runs about 20% faster at 64 px)
+  static constexpr int MIN_BLOCKS = 1024 / THREADS;
+  static_assert(TILE % 8 == 0 && P % SUB_P == 0, "tile edge 8, 16, 32 or 64");
+  static_assert(CHUNK % GROUP == 0 || GROUP % CHUNK == 0,
+                "the first group produces a chunk's rows");
+  static_assert(CLUSTER <= 32, "a warp reads the cluster's votes");
 };
 
 // Per-launch arguments of the composite, passed by value.
 struct CompositeArgs {
   const int* starts;  // (num_tiles,) int32
   const int* ends;    // (num_tiles,) int32
-  const int* order;   // (num_tiles,) int32 tile of each block, heaviest first
+  const int* order;   // (num_tiles,) int32 tile of each block or cluster
   const float* zbuf;  // (num_tiles, P) camera z, or null
   float* out;         // (num_tiles, 8, P)
   int tiles_x;
@@ -106,29 +144,40 @@ struct CompositeArgs {
   float log_eps;
 };
 
+// Whether any of the C blocks of this block's cluster voted its tile alive
+// before chunk c: the block's vote goes to its shared memory at the chunk's
+// parity, every warp reads the C votes after one cluster barrier. The
+// parity lets a block write chunk c + 1's vote while a peer may still read
+// chunk c's: it can only reach chunk c + 2's after every peer has passed
+// chunk c + 1's barrier.
+template <int C>
+__device__ __forceinline__ bool cluster_alive(int vote, int c) {
+  __shared__ int s_vote[2];
+  coop::cluster_group cluster = coop::this_cluster();
+  if (threadIdx.x == 0) s_vote[c & 1] = vote;
+  cluster.sync();
+  const int lane = threadIdx.x % 32;
+  const int v =
+      lane < C ? *cluster.map_shared_rank(&s_vote[c & 1], (unsigned)lane) : 0;
+  return __any_sync(0xffffffffu, v != 0);
+}
+
 template <int TILE, class Source>
 __device__ __forceinline__ void composite_tile(const Source& src,
                                                const CompositeArgs& a) {
   using G = Composite<TILE>;
   constexpr int P = G::P, PIX = G::PIX, GROUP = G::GROUP;
+  constexpr int C = G::CLUSTER;
   constexpr bool EXACT = ExactPower<TILE>::value;
   __shared__ float4 s_pow[CHUNK];  // c0, c1, c2, c3
   __shared__ float4 s_cut[CHUNK];  // c4, c5, log-alpha threshold, depth
-  __shared__ float4 s_col[CHUNK];  // r, g, b, unused
-  float4* s_back;                  // the back half's r, g, b, depth sums
-  float* s_back_lt;                // and its log-transmittance sum
-  if constexpr (G::DYNAMIC) {
-    extern __shared__ float4 s_dynamic[];
-    s_back = s_dynamic;
-    s_back_lt = reinterpret_cast<float*>(s_dynamic + P);
-  } else {
-    __shared__ float4 s_back_static[P];
-    __shared__ float s_back_lt_static[P];
-    s_back = s_back_static;
-    s_back_lt = s_back_lt_static;
-  }
+  __shared__ float4 s_col[CHUNK];  // r, g, b, support mask bits (clusters)
+  __shared__ float4 s_back[G::SUB_P];  // the back half's r, g, b, depth sums
+  __shared__ float s_back_lt[G::SUB_P];  // and its log-transmittance sum
 
-  const int t = a.order[blockIdx.x];
+  int rank = 0;  // the block's sub-block of the tile
+  if constexpr (C > 1) rank = (int)coop::this_cluster().block_rank();
+  const int t = a.order[blockIdx.x / C];
   const int tid = threadIdx.x;
   const int half = tid / GROUP;    // 0: front half of each chunk, 1: back
   const int q = tid % GROUP;
@@ -137,17 +186,20 @@ __device__ __forceinline__ void composite_tile(const Source& src,
   const int astart = (start / CHUNK) * CHUNK;
   const int n_chunks = (end - astart + CHUNK - 1) / CHUNK;
 
-  // tile-centered pixel coordinates: half-integers in [-TILE/2 + 0.5,
-  // TILE/2 - 0.5]; pixel j of this thread is (px, py0 + j), index pix[j]
-  const int px = q % TILE;
-  const int py0 = (q / TILE) * PIX;
+  // pixel coordinates centred on the whole tile: half-integers in
+  // [-TILE/2 + 0.5, TILE/2 - 0.5]; pixel j of this thread is (px, py0 + j),
+  // index pix[j]
+  constexpr int COLS = TILE / G::SUB_W;  // sub-blocks in a row of the tile
+  const int px = (rank % COLS) * G::SUB_W + q % G::SUB_W;
+  const int py0 = (rank / COLS) * G::SUB_H + (q / G::SUB_W) * PIX;
   const float x = (float)px + 0.5f - 0.5f * TILE;
   const float xx = x * x;
-  int pix[PIX];
+  int pix[PIX], back[PIX];  // tile and back-buffer index of pixel j
   float y[PIX], xy[PIX], yy[PIX], zb[PIX];
 #pragma unroll
   for (int j = 0; j < PIX; ++j) {
     pix[j] = (py0 + j) * TILE + px;
+    back[j] = C == 1 ? pix[j] : j * GROUP + q;
     y[j] = (float)(py0 + j) + 0.5f - 0.5f * TILE;
     xy[j] = x * y[j];
     yy[j] = y[j] * y[j];
@@ -156,6 +208,18 @@ __device__ __forceinline__ void composite_tile(const Source& src,
   }
   const float ox = (float)((t % a.tiles_x) * TILE) + 0.5f * TILE;
   const float oy = (float)((t / a.tiles_x) * TILE) + 0.5f * TILE;
+  // instance base + r's three records into the chunk buffer's row r
+  const auto stage = [&](int base, int r) {
+    const Decoded d = src((long long)base + r);
+    power_records<EXACT>(d, d.mx - ox, d.my - oy, s_pow[r], s_cut[r]);
+    if constexpr (C == 1) {
+      s_col[r] = make_float4(d.r, d.g, d.b, 0.0f);
+    } else {
+      const unsigned mask = support_mask<TILE, G::SUB_W, G::SUB_H>(
+          d, d.mx - ox, d.my - oy, logf(fmaxf(d.opa, 1e-30f)));
+      s_col[r] = make_float4(d.r, d.g, d.b, __uint_as_float(mask));
+    }
+  };
 
   float lt[PIX];  // log transmittance (the front group's)
   float acc_r[PIX], acc_g[PIX], acc_b[PIX], acc_d[PIX];
@@ -169,21 +233,22 @@ __device__ __forceinline__ void composite_tile(const Source& src,
     bool alive = false;
 #pragma unroll
     for (int j = 0; j < PIX; ++j) alive |= half == 0 && lt[j] > a.log_eps;
-    if (!__syncthreads_or(alive)) break;
+    if constexpr (C == 1) {
+      if (!__syncthreads_or(alive)) break;
+    } else {
+      if (!cluster_alive<C>(__syncthreads_or(alive), c)) break;
+    }
     const int base = astart + c * CHUNK;
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
-    const auto stage = [&](int r) {
-      const Decoded d = src((long long)base + r);
-      power_records<EXACT>(d, d.mx - ox, d.my - oy, s_pow[r], s_cut[r]);
-      s_col[r] = make_float4(d.r, d.g, d.b, 0.0f);
-    };
-    if constexpr (GROUP == CHUNK) {
-      if (tid < CHUNK && tid >= lo && tid < hi) stage(tid);
-    } else if (tid < GROUP) {  // fewer threads than rows: loop
-      for (int r = tid; r < CHUNK; r += GROUP) {
-        if (r >= lo && r < hi) stage(r);
+    if constexpr (GROUP < CHUNK) {  // fewer threads than rows: loop
+      if (tid < GROUP) {
+        for (int r = tid; r < CHUNK; r += GROUP) {
+          if (r >= lo && r < hi) stage(base, r);
+        }
       }
+    } else if (tid < CHUNK && tid >= lo && tid < hi) {
+      stage(base, tid);
     }
     __syncthreads();
 
@@ -197,6 +262,9 @@ __device__ __forceinline__ void composite_tile(const Source& src,
     const int h_lo = max(lo, half * HALF);
     const int h_hi = min(hi, half * HALF + HALF);
     for (int i = h_lo; i < h_hi; ++i) {
+      if constexpr (C > 1) {  // the support misses this block's pixels
+        if (!((__float_as_uint(s_col[i].w) >> rank) & 1u)) continue;
+      }
       const float4 ct = s_cut[i];
       float power[PIX];
       bool hit[PIX];
@@ -223,8 +291,8 @@ __device__ __forceinline__ void composite_tile(const Source& src,
     if (half == 1) {
 #pragma unroll
       for (int j = 0; j < PIX; ++j) {
-        s_back[pix[j]] = make_float4(cr[j], cg[j], cbl[j], cd[j]);
-        s_back_lt[pix[j]] = s_ex[j];
+        s_back[back[j]] = make_float4(cr[j], cg[j], cbl[j], cd[j]);
+        s_back_lt[back[j]] = s_ex[j];
       }
     }
     __syncthreads();
@@ -232,13 +300,13 @@ __device__ __forceinline__ void composite_tile(const Source& src,
 #pragma unroll
       for (int j = 0; j < PIX; ++j) {
         // join the halves: the back half's weights start behind the front
-        const float4 bk = s_back[pix[j]];
+        const float4 bk = s_back[back[j]];
         const float tf = expf(s_ex[j]);
         cr[j] += tf * bk.x;
         cg[j] += tf * bk.y;
         cbl[j] += tf * bk.z;
         cd[j] += tf * bk.w;
-        s_ex[j] += s_back_lt[pix[j]];
+        s_ex[j] += s_back_lt[back[j]];
         const float tr = expf(lt[j]);
         acc_r[j] += tr * cr[j];
         acc_g[j] += tr * cg[j];
@@ -248,6 +316,8 @@ __device__ __forceinline__ void composite_tile(const Source& src,
       }
     }
   }
+  // no block leaves while a peer may still read its shared memory
+  if constexpr (C > 1) coop::this_cluster().sync();
 
   if (half == 0) {
 #pragma unroll
@@ -265,21 +335,51 @@ __device__ __forceinline__ void composite_tile(const Source& src,
   }
 }
 
-// Launches ``kernel`` (a composite_tile<TILE> kernel) with one block per
-// tile, opting the kernel in to its dynamic shared memory first where the
-// instantiation needs it. Returns the launch's cudaError_t.
+// Launches ``kernel`` (a composite_tile<TILE> kernel): one block per tile
+// up to 16 px, one cluster of Composite<TILE>::CLUSTER blocks per tile
+// above (opting the kernel in to a non-portable cluster size past 8).
+// Returns the launch's cudaError_t.
 template <int TILE, class Kernel, class... Args>
 int launch_composite(Kernel kernel, int num_tiles, cudaStream_t stream,
                      Args... args) {
   using G = Composite<TILE>;
-  if (G::DYNAMIC) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G::DYNAMIC_BYTES);
-    if (err != cudaSuccess) return (int)err;
+  if constexpr (G::CLUSTER == 1) {
+    kernel<<<num_tiles, G::THREADS, 0, stream>>>(args...);
+    return (int)cudaGetLastError();
+  } else {
+    if constexpr (G::CLUSTER > 8) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = G::CLUSTER;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)num_tiles * G::CLUSTER);
+    cfg.blockDim = dim3(G::THREADS);
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
   }
-  kernel<<<num_tiles, G::THREADS, G::DYNAMIC_BYTES, stream>>>(args...);
-  return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of ``kernel``: registers a thread, local memory
+// (spills) bytes a thread, the largest block it can launch.
+template <class Kernel>
+int kernel_attributes(Kernel kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = attr.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // namespace

@@ -19,9 +19,10 @@
 // 4,793 instances (3,238 at the bins' camera), and that one tile alone
 // sets most of the kernel's time (measured on an H100 SXM at 700 W).
 //
-// Design: the shared fragment loop of composite.cuh (one block per tile
-// taken heaviest first, instantiated for tile edges 8, 16, 32 and 64 and
-// chosen by the entry's tile argument; at 16 px two pixels a thread,
+// Design: the shared fragment loop of composite.cuh (one block per tile,
+// one thread-block cluster at 32 and 64 px, taken heaviest first,
+// instantiated for tile edges 8, 16, 32 and 64 and chosen by the entry's
+// tile argument; at 16 px two pixels a thread,
 // globally aligned 128-instance chunks split between two thread groups,
 // __syncthreads_or early stop), fed by a row source that loads one cached
 // row and projects it:
@@ -37,11 +38,18 @@
 //   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
 //   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
 //   it), so a degenerate instance decodes to the same values in both;
-// * the first thread group (128 threads, one row each; 64 threads, two
-//   rows each, at 8 px) projects a chunk's rows; the second, which
-//   composites the chunk's back half, waits at the barrier. K3 takes
-//   about 3% longer than K2 on the same frame, for the projection and the
-//   64-byte rows together, so the idle group costs at most that.
+// * up to 16 px the first thread group (128 threads, one row each; 64
+//   threads, two rows each, at 8 px) projects a chunk's rows; the second,
+//   which composites the chunk's back half, waits at the barrier. K3 takes
+//   about 3% longer than K2 on the same 16 px frame, for the projection
+//   and the 64-byte rows together, so the idle group costs at most that;
+// * at 32 and 64 px a cluster of 4 or 16 blocks composites a tile, and
+//   every block projects the whole chunk itself, CLUSTER times the
+//   projections; under the cluster kernels' 64-register cap (4 blocks an
+//   SM) K3 stays within a few percent of K2 there. Splitting the
+//   projection over the cluster and copying the records through
+//   distributed shared memory took 111 registers a thread (spills under
+//   the cap) and was slower (PERF.md, cluster_variants.py).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -173,13 +181,45 @@ struct CachedRows {
   }
 };
 
+// one block per tile (8 and 16 px)
 template <int TILE>
 __global__ void __launch_bounds__(Composite<TILE>::THREADS)
 rasterize_cached_kernel(CachedRows src, CompositeArgs args) {
   composite_tile<TILE>(src, args);
 }
 
+// one cluster per tile (32 and 64 px), held to 64 registers a thread
+template <int TILE>
+__global__ void __launch_bounds__(Composite<TILE>::THREADS,
+                                  Composite<TILE>::MIN_BLOCKS)
+rasterize_cached_cluster_kernel(CachedRows src, CompositeArgs args) {
+  composite_tile<TILE>(src, args);
+}
+
+// K3's kernel at tile edge TILE
+template <int TILE>
+auto cached_kernel() {
+  if constexpr (Composite<TILE>::CLUSTER > 1) {
+    return rasterize_cached_cluster_kernel<TILE>;
+  } else {
+    return rasterize_cached_kernel<TILE>;
+  }
+}
+
 }  // namespace
+
+// out: 3 int32, cudaFuncGetAttributes of the K3 instantiation at tile edge
+// tile (8, 16, 32 or 64): registers a thread, local memory bytes a thread
+// (spills), the largest block.
+extern "C" int splat_rasterize_cached_attributes(int tile, int* out) {
+  switch (tile) {
+    case 8: return kernel_attributes(cached_kernel<8>(), out);
+    case 16: return kernel_attributes(cached_kernel<16>(), out);
+    case 32: return kernel_attributes(cached_kernel<32>(), out);
+    case 64: return kernel_attributes(cached_kernel<64>(), out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // prm: (K, 16) f32 cached parameter rows in tile order, 16-byte aligned;
 // mv, pr: host pointers to the row-major 4x4 modelview and projection (read
@@ -215,16 +255,16 @@ extern "C" int splat_rasterize_cached_fwd(const float* prm, const float* mv,
                            clamp_log_om, log_eps};
   switch (tile) {
     case 8:
-      return launch_composite<8>(rasterize_cached_kernel<8>, num_tiles,
-                                 stream, src, args);
+      return launch_composite<8>(cached_kernel<8>(), num_tiles, stream, src,
+                                 args);
     case 16:
-      return launch_composite<16>(rasterize_cached_kernel<16>, num_tiles,
-                                  stream, src, args);
+      return launch_composite<16>(cached_kernel<16>(), num_tiles, stream,
+                                  src, args);
     case 32:
-      return launch_composite<32>(rasterize_cached_kernel<32>, num_tiles,
-                                  stream, src, args);
+      return launch_composite<32>(cached_kernel<32>(), num_tiles, stream,
+                                  src, args);
     default:
-      return launch_composite<64>(rasterize_cached_kernel<64>, num_tiles,
-                                  stream, src, args);
+      return launch_composite<64>(cached_kernel<64>(), num_tiles, stream,
+                                  src, args);
   }
 }

@@ -19,8 +19,8 @@
 // by 8 warps (composite.cuh), it no longer finishes last.
 //
 // Design: the shared fragment loop of composite.cuh (instantiated for
-// tile edges 8, 16, 32 and 64, chosen by the entry's tile argument), fed
-// by a row source
+// tile edges 8, 16, 32 and 64, chosen by the entry's tile argument; one
+// thread-block cluster per tile at 32 and 64 px), fed by a row source
 // that loads one 32-byte row (two 16-byte loads) per instance and decodes
 // it (rows.cuh). The 16-byte rows decode exactly as splatjax's
 // unpack_chunk16 (mean at 1/8 px with a 2048 px bias, bf16 conic halves,
@@ -45,22 +45,46 @@ struct PackedRows {
   }
 };
 
+// one block per tile (8 and 16 px)
 template <int TILE, bool PACKED16>
 __global__ void __launch_bounds__(Composite<TILE>::THREADS)
 rasterize_fwd_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
   composite_tile<TILE>(src, args);
 }
 
+// one cluster per tile (32 and 64 px), held to 64 registers a thread
+template <int TILE, bool PACKED16>
+__global__ void __launch_bounds__(Composite<TILE>::THREADS,
+                                  Composite<TILE>::MIN_BLOCKS)
+rasterize_fwd_cluster_kernel(PackedRows<PACKED16> src, CompositeArgs args) {
+  composite_tile<TILE>(src, args);
+}
+
+// K2's kernel at tile edge TILE
+template <int TILE, bool PACKED16>
+auto fwd_kernel() {
+  if constexpr (Composite<TILE>::CLUSTER > 1) {
+    return rasterize_fwd_cluster_kernel<TILE, PACKED16>;
+  } else {
+    return rasterize_fwd_kernel<TILE, PACKED16>;
+  }
+}
+
+template <int TILE>
+int fwd_attributes(int packed16, int* out) {
+  return packed16 ? kernel_attributes(fwd_kernel<TILE, true>(), out)
+                  : kernel_attributes(fwd_kernel<TILE, false>(), out);
+}
+
 template <int TILE>
 int launch_fwd(const int4* rows, const CompositeArgs& args, int num_tiles,
                int packed16, cudaStream_t stream) {
   if (packed16) {
-    return launch_composite<TILE>(rasterize_fwd_kernel<TILE, true>,
-                                  num_tiles, stream, PackedRows<true>{rows},
-                                  args);
+    return launch_composite<TILE>(fwd_kernel<TILE, true>(), num_tiles,
+                                  stream, PackedRows<true>{rows}, args);
   }
-  return launch_composite<TILE>(rasterize_fwd_kernel<TILE, false>, num_tiles,
-                                stream, PackedRows<false>{rows}, args);
+  return launch_composite<TILE>(fwd_kernel<TILE, false>(), num_tiles, stream,
+                                PackedRows<false>{rows}, args);
 }
 
 }  // namespace
@@ -91,5 +115,19 @@ extern "C" int splat_rasterize_fwd(const int* rows, const int* starts,
     case 16: return launch_fwd<16>(r, args, num_tiles, packed16, stream);
     case 32: return launch_fwd<32>(r, args, num_tiles, packed16, stream);
     default: return launch_fwd<64>(r, args, num_tiles, packed16, stream);
+  }
+}
+
+// out: 3 int32, cudaFuncGetAttributes of the K2 instantiation at tile edge
+// tile (8, 16, 32 or 64) and row width (packed16): registers a thread,
+// local memory bytes a thread (spills), the largest block.
+extern "C" int splat_rasterize_fwd_attributes(int tile, int packed16,
+                                              int* out) {
+  switch (tile) {
+    case 8: return fwd_attributes<8>(packed16, out);
+    case 16: return fwd_attributes<16>(packed16, out);
+    case 32: return fwd_attributes<32>(packed16, out);
+    case 64: return fwd_attributes<64>(packed16, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

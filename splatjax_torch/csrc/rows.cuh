@@ -102,6 +102,65 @@ __device__ __forceinline__ void power_records(const Decoded& d, float mxl,
   ct = make_float4(-cb, -0.5f * cc, lnopa - 4.0f, d.depth);
 }
 
+// The sub-blocks of a TILE x TILE tile (SUB_W x SUB_H each, numbered row
+// by row, TILE / SUB_W to a row) that instance d's support can reach: bit b
+// is clear only if no pixel of sub-block b can pass the exp(-4) cutoff, so
+// a block may skip the instances whose bit is clear and leave every sum
+// bit-equal. (mxl, myl): its mean minus the tile centre, lnopa: its log
+// opacity, as power_records<true> takes and computes them.
+//
+// The rectangle is ops/rasterize.py's support_rect, op for op (f32, each
+// operation rounded on its own). The power evaluated op by op
+// (power_records<true>, eval_power<true>) is within 10 ulps x T of the
+// exact polynomial, T the sum of |each term| at |x|, |y| <= TILE / 2, so a
+// hit has q = ca dx^2 + 2 cb dx dy + cc dy^2 below Q = 8 + 2^-16 (T + 4),
+// and lies within sqrt(Q cc / det), sqrt(Q ca / det) of the mean, det =
+// ca cc - cb^2, bounded below by its rounded value less 2^-20 (ca cc +
+// cb^2); the half-widths are raised by 2^-20 of themselves and one pixel,
+// far more than the rounding of each step. Not positive definite (or NaN):
+// every bit.
+template <int TILE, int SUB_W, int SUB_H>
+__device__ __forceinline__ unsigned support_mask(const Decoded& d, float mxl,
+                                                 float myl, float lnopa) {
+  constexpr int COLS = TILE / SUB_W, ROWS = TILE / SUB_H;
+  constexpr unsigned ALL = (1u << (COLS * ROWS)) - 1u;
+  constexpr float H = 0.5f * TILE;
+  const float ca = d.ca, cb = d.cb, cc = d.cc;
+  const float aa = fabsf(ca), ab = fabsf(cb), ac = fabsf(cc);
+  const float amx = fabsf(mxl), amy = fabsf(myl);
+  float t = add_rn(fabsf(lnopa), mul_rn(mul_rn(0.5f, aa), mul_rn(amx, amx)));
+  t = add_rn(t, mul_rn(mul_rn(0.5f, ac), mul_rn(amy, amy)));
+  t = add_rn(t, mul_rn(ab, mul_rn(amx, amy)));
+  t = add_rn(t, mul_rn(H, add_rn(add_rn(mul_rn(aa, amx), mul_rn(ab, amy)),
+                                 add_rn(mul_rn(ac, amy), mul_rn(ab, amx)))));
+  t = add_rn(t, mul_rn(H * H, add_rn(add_rn(mul_rn(0.5f, aa), ab),
+                                     mul_rn(0.5f, ac))));
+  const float q = add_rn(8.0f, mul_rn(0x1p-16f, add_rn(t, 4.0f)));
+  const float p1 = mul_rn(ca, cc), p2 = mul_rn(cb, cb);
+  const float det = sub_rn(sub_rn(p1, p2), mul_rn(0x1p-20f, add_rn(p1, p2)));
+  if (!(ca > 0.0f && det > 0.0f)) return ALL;
+  const float grow = 1.0f + 0x1p-20f;
+  const float hx = add_rn(
+      mul_rn(__fsqrt_rn(__fdiv_rn(mul_rn(q, cc), det)), grow), 1.0f);
+  const float hy = add_rn(
+      mul_rn(__fsqrt_rn(__fdiv_rn(mul_rn(q, ca), det)), grow), 1.0f);
+  const float x0 = sub_rn(mxl, hx), x1 = add_rn(mxl, hx);
+  const float y0 = sub_rn(myl, hy), y1 = add_rn(myl, hy);
+  // pixel centres of sub-block column i: [i SUB_W - H + 0.5, ... + SUB_W - 1]
+  unsigned cols = 0, mask = 0;
+#pragma unroll
+  for (int i = 0; i < COLS; ++i) {
+    const float lo = i * SUB_W - H + 0.5f, hi = lo + (SUB_W - 1);
+    if (!(x0 > hi || x1 < lo)) cols |= 1u << i;
+  }
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    const float lo = j * SUB_H - H + 0.5f, hi = lo + (SUB_H - 1);
+    if (!(y0 > hi || y1 < lo)) mask |= cols << (j * COLS);
+  }
+  return mask;
+}
+
 // An instance's log alpha before the clip at a thread's N pixels (x, y[j])
 // from its records, term for term in this order: another association or
 // FMA contraction flips fragments on the exp(-4) cutoff (EXACT: no

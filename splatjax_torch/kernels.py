@@ -161,6 +161,27 @@ def timed_launches(lib: str, name: str) -> Iterator[list]:
         _functions[key] = raw
 
 
+def rasterizer_attributes(name: str, tile: int) -> dict[str, int]:
+    """``cudaFuncGetAttributes`` of forward rasterizer ``name`` (K2's
+    counters ``rasterize_fwd`` and ``rasterize_fwd16``, or K3's
+    ``rasterize_cached``) at tile edge ``tile``: registers a thread
+    (``num_regs``), local memory bytes a thread, which spills use
+    (``local_bytes``), and the largest block (``max_threads``)."""
+    out = (ctypes.c_int * 3)()
+    ptr = ctypes.POINTER(ctypes.c_int)
+    if name == "rasterize_cached":
+        fn = function(name, "splat_rasterize_cached_attributes",
+                      [ctypes.c_int, ptr])
+        err = fn(tile, out)
+    else:
+        fn = function("rasterize_fwd", "splat_rasterize_fwd_attributes",
+                      [ctypes.c_int, ctypes.c_int, ptr])
+        err = fn(tile, int(name == "rasterize_fwd16"), out)
+    if err != 0:
+        raise RuntimeError(f"{name} attributes at {tile} px: cudaError {err}")
+    return dict(num_regs=out[0], local_bytes=out[1], max_threads=out[2])
+
+
 def tiled_counter(name: str, tile: int) -> str:
     """The launch counter of rasterizer ``name`` (K2, K3 or K4) at tile
     edge ``tile``: ``name`` at the default edge, ``name@tile`` else."""

@@ -606,6 +606,41 @@ def fragment_power(mxl, myl, ca, cb, cc, opa, basis):
     return power, lnopa
 
 
+def support_rect(mxl, myl, ca, cb, cc, lnopa, tile: int
+                 ) -> tuple[torch.Tensor, ...]:
+    """(x0, x1, y0, y1), f32 like the inputs: a rectangle in tile-centred
+    coordinates outside of which no pixel of a ``tile`` x ``tile`` tile
+    passes the cutoff, ``fragment_power >= lnopa - 4``, for the instance
+    whose mean minus the tile centre is (mxl, myl), with conic (ca, cb, cc)
+    and log opacity ``lnopa``. ±inf where the conic is not positive
+    definite.
+
+    The plain twin of ``support_mask`` in ``csrc/rows.cuh`` (the 32 and 64
+    px kernels skip an instance for a 16x16 sub-block the rectangle
+    misses), op for op in f32: the op-by-op power is within 10 ulps x T of
+    the exact polynomial (T: the sum of |each term| at |x|, |y| <= tile /
+    2), so a hit has ca dx^2 + 2 cb dx dy + cc dy^2 below 8 + 2^-16 (T + 4);
+    the ellipse's half-widths use a lower bound of ca cc - cb^2 and are
+    raised by 2^-20 of themselves and one pixel."""
+    h = 0.5 * tile
+    aa, ab, ac = ca.abs(), cb.abs(), cc.abs()
+    amx, amy = mxl.abs(), myl.abs()
+    t = lnopa.abs() + (0.5 * aa) * (amx * amx)
+    t = t + (0.5 * ac) * (amy * amy)
+    t = t + ab * (amx * amy)
+    t = t + h * ((aa * amx + ab * amy) + (ac * amy + ab * amx))
+    t = t + (h * h) * ((0.5 * aa + ab) + 0.5 * ac)
+    q = 8.0 + 2.0 ** -16 * (t + 4.0)
+    p1, p2 = ca * cc, cb * cb
+    det = (p1 - p2) - 2.0 ** -20 * (p1 + p2)
+    grow = 1.0 + 2.0 ** -20
+    ok = (ca > 0.0) & (det > 0.0)
+    inf = torch.full_like(mxl, math.inf)
+    hx = torch.where(ok, (q * cc / det).sqrt() * grow + 1.0, inf)
+    hy = torch.where(ok, (q * ca / det).sqrt() * grow + 1.0, inf)
+    return mxl - hx, mxl + hx, myl - hy, myl + hy
+
+
 def tiles_to_image(out_tiles: torch.Tensor, cfg: TileConfig,
                    background: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:

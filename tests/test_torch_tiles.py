@@ -14,6 +14,11 @@ the 16-byte cached redraw (K3's plain version) within 1e-2 (splatjax's
 the largest |gradient|, rtol 2e-3 (splatjax's own gradient contract); the
 port's entry points against each other bit-equal, and the one-rank
 ``render_sharded`` within 1e-4 of ``render``.
+
+The contracts the 32 and 64 px cluster kernels keep, on the plain versions
+(CPU, no splatjax): one chunks_done a tile, and the support rectangle that
+lets a sub-block skip an instance holding every fragment that passes the
+cutoff, on scene rows and on random conics (hypothesis).
 """
 import dataclasses
 import importlib
@@ -23,6 +28,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as hs
 import torch
 import torch.distributed as dist
 
@@ -263,3 +270,136 @@ def test_render_sharded_one_rank(tmp_path):
                 render_sharded(scene, cam, mesh, tile_size=24)
     finally:
         dist.destroy_process_group()
+
+
+# -- what the 32 and 64 px cluster kernels rely on, on the plain versions ----
+
+def _dense_case(edge, kind):
+    """A 2000-splat scene that covers the 80x64 view (alpha above 0.98 on
+    every pixel; every tile two to fourteen 128-instance chunks deep)
+    through the plain version of K2 (``fwd32``, ``fwd16``) or K3
+    (``cached``) at tile edge ``edge``, clip 0.999 and an early stop of
+    0.02, which ends the tiles inside the view before their last chunk. Returns the tile config,
+    the tiles' bounds, the decoded features of every instance row (K2's
+    packed rows, K3's projected cached rows) and the plain output."""
+    from splatjax_torch.io import synthetic_scene as t_synthetic_scene
+    from splatjax_torch.ops.binning import (
+        bin_gaussians, features_from_projection,
+    )
+    from splatjax_torch.ops.projection import project_gaussians
+    from splatjax_torch.ops.rasterize import (
+        cached_camera, decode_rows, gather_rows, pack_table,
+        project_cached_rows, rasterize_cached_fwd_plain, rasterize_fwd_plain,
+    )
+    from splatjax_torch.scene import build_covariances
+
+    scene = t_synthetic_scene(2000, seed=5, extent=0.7,
+                              scale_range=(0.03, 0.1), device="cpu")
+    cam = _t_cam(80, 64, (0.1, -0.2, 1.2))
+    cfg = TileConfig(80, 64, edge, edge)
+    es = 0.02
+    if kind == "cached":
+        bins = st.bin_scene(scene, cam, tile_size=edge, cache_params=True)
+        b = bins.bins
+        out = rasterize_cached_fwd_plain(
+            bins.prm, cached_camera(cam.modelview, cam.projection, 80, 64),
+            b.starts, b.ends, cfg, 0.999, es)
+        feats = project_cached_rows(bins.prm, cam.modelview, cam.projection,
+                                    80, 64)
+        return cfg, b, feats, out
+    packed16 = kind == "fwd16"
+    proj = project_gaussians(
+        scene.means, build_covariances(scene.quats, scene.scales),
+        scene.colors, scene.opacities, cam.modelview, cam.projection, 80, 64,
+        max_scales=scene.scales.amax(dim=-1), support_eps=es)
+    b = bin_gaussians(proj, cfg, 1 << 16)
+    assert int(b.overflow) == 0
+    rows = gather_rows(pack_table(features_from_projection(proj), packed16),
+                       b.gauss_id)
+    out = rasterize_fwd_plain(rows, b.starts, b.ends, cfg, 0.999, es,
+                              packed16=packed16)
+    return cfg, b, decode_rows(rows, packed16), out
+
+
+@pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
+@pytest.mark.parametrize("edge", (32, 64))
+def test_chunks_done_is_one_value_per_tile(edge, kind):
+    """Output row 4 (chunks_done) is one value over every pixel of a tile:
+    the whole tile stops at once. The 32 and 64 px kernels vote that stop
+    across their cluster to keep it, and K4 reads it at a tile's pixel 0
+    only. The early stop fires before the last chunk of some tile."""
+    from splatjax_torch.ops.rasterize import CHUNK
+
+    _, b, _, out = _dense_case(edge, kind)
+    done = out[:, 4]
+    assert torch.equal(done, done[:, :1].expand_as(done))
+    astart = b.starts.long() // CHUNK * CHUNK
+    n_chunks = (b.ends.long() - astart + CHUNK - 1) // CHUNK
+    walked = done[:, 0].long()
+    assert bool((walked <= n_chunks).all())
+    assert bool(((walked >= 1) & (walked < n_chunks)).any())
+
+
+def _rect_holds(mxl, myl, ca, cb, cc, opa, edge):
+    """How many (instance, pixel) pairs of a tile pass the cutoff, after
+    asserting that each lies inside the instance's ``support_rect``; the
+    arguments are (B, C) f32 tensors."""
+    from splatjax_torch.ops.rasterize import (
+        fragment_power, pixel_coords, support_rect,
+    )
+
+    x, y = pixel_coords(TileConfig(edge, edge, edge, edge), "cpu")
+    power, lnopa = fragment_power(mxl, myl, ca, cb, cc, opa,
+                                  (x, y, x * x, x * y, y * y))
+    passes = power >= (lnopa - 4.0)[:, None, :]                # (B, P, C)
+    x0, x1, y0, y1 = (v[:, None, :] for v in support_rect(
+        mxl, myl, ca, cb, cc, lnopa, edge))
+    inside = ((x[None, :, None] >= x0) & (x[None, :, None] <= x1)
+              & (y[None, :, None] >= y0) & (y[None, :, None] <= y1))
+    assert not bool((passes & ~inside).any())
+    return int(passes.sum())
+
+
+@pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
+@pytest.mark.parametrize("edge", (32, 64))
+def test_support_rect_holds_the_scene_rows(edge, kind):
+    """Every fragment of the dense scene that passes the cutoff lies inside
+    its instance's support rectangle, for each tile's own rows."""
+    cfg, b, f, _ = _dense_case(edge, kind)
+    passed = 0
+    for t in range(cfg.num_tiles):
+        k = torch.arange(int(b.starts[t]), int(b.ends[t]))
+        ox = float((t % cfg.tiles_x) * edge) + 0.5 * edge
+        oy = float((t // cfg.tiles_x) * edge) + 0.5 * edge
+        mxl, myl = f[0][k] - ox, f[1][k] - oy
+        passed += _rect_holds(*(v[None] for v in (
+            mxl, myl, f[2][k], f[3][k], f[4][k], f[8][k])), edge)
+    assert passed > 0
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=hs.integers(0, 2 ** 32 - 1), edge=hs.sampled_from((32, 64)),
+       log_ratio=hs.floats(0.0, 7.0), bf16=hs.booleans())
+def test_support_rect_holds_random_conics(seed, edge, log_ratio, bf16):
+    """Random conics (eigenvalues 1e-6 to 1e8 per px^2, aspect up to 1e7,
+    any angle; bf16-rounded as in 16-byte rows), opacities down to zero
+    and means around the tile: no pixel outside ``support_rect`` passes
+    the cutoff."""
+    rng = np.random.default_rng(seed)
+    n = 128
+    small = 10.0 ** rng.uniform(-6.0, 1.0, n)
+    big = small * 10.0 ** (log_ratio * rng.uniform(0.0, 1.0, n))
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    conic = [big * c * c + small * s * s, (big - small) * c * s,
+             big * s * s + small * c * c]
+    reach = 0.5 * edge + 1.2 * np.sqrt(8.0 / small)
+    mean = [np.clip(rng.uniform(-1.0, 1.0, n) * reach, -6000.0, 6000.0)
+            for _ in range(2)]
+    opa = np.where(rng.uniform(size=n) < 0.1, 0.0,
+                   10.0 ** rng.uniform(-8.0, 0.0, n))
+    t = [torch.tensor(v, dtype=torch.float32)[None]
+         for v in (*mean, *conic, opa)]
+    if bf16:
+        t[2:5] = [v.to(torch.bfloat16).to(torch.float32) for v in t[2:5]]
+    _rect_holds(*t, edge)
