@@ -914,6 +914,7 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
 
     walked16 = walked_per_tile(b, saved)
     walked_ends = (b.starts.long() + walked16).to(torch.int32)
+    k4_balance(rows16, b, cfg, walked_ends)
     args = (saved, g_out, cfg, 0.999)
     by_len = rasterize_bwd(rows16, b.starts, b.ends, *args, packed16=True)
     by_walked = rasterize_bwd(rows16, b.starts, walked_ends, *args,
@@ -930,6 +931,63 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
         "bins' order) "
         f"{len_ms:.4f} ms ({len_tr}), by walked instances {walk_ms:.4f} ms "
         f"({walk_tr}); rows bit-identical")
+
+
+def k4_balance(rows16, b, cfg, walked_ends):
+    """How the 32 and 64 px K4 cluster's walk spreads over its blocks on
+    the full frame: the (instance, 16x16 sub-block) pairs a block walks
+    (``support_rect``, the plain twin of the kernel's support mask, on
+    the 16-byte rows), and, since every block waits at a cluster barrier
+    each chunk, the busiest block's pairs summed over the frame's (tile,
+    chunk)s beside the mean block's, over all tiles and on the deepest
+    one; and each tile's busiest block over all its chunks, summed over
+    the tiles: the walk if blocks waited only at the tile's end. A
+    ``[tail]`` line."""
+    import torch
+    from splatjax_torch.ops.rasterize import CHUNK, decode_rows, support_rect
+
+    tile, sub = cfg.tile_w, 16
+    cols = tile // sub
+    starts, ends = b.starts.long(), walked_ends.long()
+    k = torch.arange(int(ends.max()), device=rows16.device)
+    t = b.tile_id[:k.numel()].long()
+    walked = (t < cfg.num_tiles)
+    t = t.clamp_max(cfg.num_tiles - 1)
+    walked &= (k >= starts[t]) & (k < ends[t])
+    k, t = k[walked], t[walked]
+    f = decode_rows(rows16[k], True)
+    ox = (t % cfg.tiles_x).float() * tile + 0.5 * tile
+    oy = (t // cfg.tiles_x).float() * tile + 0.5 * tile
+    x0, x1, y0, y1 = support_rect(f[0] - ox, f[1] - oy, f[2], f[3], f[4],
+                                  f[8].clamp_min(1e-30).log(), tile)
+    lo = torch.arange(cols, device=k.device).float() * sub - 0.5 * tile + 0.5
+    hit_x = ~((x0[:, None] > lo + sub - 1) | (x1[:, None] < lo))
+    hit_y = ~((y0[:, None] > lo + sub - 1) | (y1[:, None] < lo))
+    reach = (hit_y[:, :, None] & hit_x[:, None, :]).reshape(-1, cols * cols)
+    # (tile, chunk) of each walked instance, chunks counted from astart
+    chunk = (k - starts[t] // CHUNK * CHUNK) // CHUNK
+    n_chunks = int(chunk.max()) + 1
+    uniq, inv = torch.unique(t * n_chunks + chunk, return_inverse=True)
+    per = torch.zeros((uniq.numel(), cols * cols), dtype=torch.int64,
+                      device=k.device)
+    per.index_add_(0, inv, reach.long())
+    busiest, mean = per.amax(dim=1), per.float().mean(dim=1)
+    per_tile = torch.zeros((cfg.num_tiles, cols * cols), dtype=torch.int64,
+                           device=k.device)
+    per_tile.index_add_(0, uniq // n_chunks, per)
+    deep = int((ends - starts).clamp_min(0).argmax())
+    on_deep = uniq // n_chunks == deep
+    log(f"[tail] K4 blocks{at_tile(tile)}: {int(reach.sum())} (instance, "
+        f"16x16 sub-block) pairs walked, {float(reach.sum()) / k.numel():.2f}"
+        f" sub-blocks an instance, over {uniq.numel()} (tile, chunk)s; "
+        f"busiest block {int(busiest.sum())} pairs summed over them, mean "
+        f"block {float(mean.sum()):.0f} (balance "
+        f"{float(mean.sum() / busiest.sum()):.3f}); each tile's busiest "
+        f"block over all its chunks {int(per_tile.amax(dim=1).sum())}; "
+        f"deepest tile's {int(on_deep.sum())} chunks: busiest "
+        f"{int(busiest[on_deep].sum())}, mean "
+        f"{float(mean[on_deep].sum()):.0f}, busiest over all "
+        f"{int(per_tile[deep].max())}")
 
 
 def _check_runs(k, p, abs_sum, run_len, name):
@@ -2667,19 +2725,24 @@ def tile_kernel_checks(gate_scene, gate_cam, scene, cam, start, tile):
 
 
 def rasterizer_registers():
-    """cudaFuncGetAttributes of K2 (both row widths) and K3 at every tile
-    edge, one ``[tiles]`` line each; the cluster instantiations (32 and 64
-    px) must not spill (no local memory)."""
+    """cudaFuncGetAttributes of K2 (both row widths), K3 and K4 (both row
+    widths) at every tile edge, one ``[tiles]`` line each; the cluster
+    instantiations (32 and 64 px) must not spill (no local memory)."""
     from splatjax_torch import kernels
 
+    kinds = [(n, False) for n in RASTERIZERS[:3]] + [
+        ("rasterize_bwd", False), ("rasterize_bwd", True)]
     for tile in kernels.TILE_EDGES:
-        for name in RASTERIZERS[:3]:
-            a = kernels.rasterizer_attributes(name, tile)
-            log(f"[tiles] {name} at {tile} px: {a['num_regs']} registers, "
+        for name, packed16 in kinds:
+            a = kernels.rasterizer_attributes(name, tile, packed16)
+            what = name + (" 16-byte" if packed16 else
+                           " 32-byte" if name == "rasterize_bwd" else "")
+            log(f"[tiles] {what} at {tile} px: {a['num_regs']} registers, "
                 f"{a['local_bytes']} B of local memory a thread, blocks of "
-                f"up to {a['max_threads']} threads")
+                f"up to {a['max_threads']} threads, {a['blocks_per_sm']} "
+                f"blocks an SM, {a['clusters']} clusters at once")
             if tile > 16 and a["local_bytes"] > 0:
-                raise AssertionError(f"{name} at {tile} px spills: {a}")
+                raise AssertionError(f"{what} at {tile} px spills: {a}")
 
 
 def sharded_tile_frames(scene, cam, capacity, tile, workdir):
@@ -2790,7 +2853,7 @@ def tile_edge_drive(scene, cam, start, tile):
                              return_overflow=True)
     if int(overflow) != 0:
         raise AssertionError(f"step overflow {int(overflow)} at {tile} px")
-    step_busy, step_top = traced_busy(step, 3, "rasterize_bwd_kernel")
+    step_busy, step_top = traced_busy(step, 3, "rasterize_bwd")
     del params, opt, target
 
     _, capacity_e = redraw_capacity(scene, tile)

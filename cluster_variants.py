@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the design choices of the thread-block cluster rasterizers (K2 and
-K3 at 32 and 64 px tiles) on one GPU.
+"""Time the design choices of the thread-block cluster rasterizers (K2, K3
+and K4 at 32 and 64 px tiles) on one GPU.
 
     python3 cluster_variants.py [VARIANT ...]
 
@@ -11,7 +11,11 @@ changed (``VARIANTS``), built as ``splatjax_torch.kernels`` builds it, into
   shipped     the sources as they are: every block of a cluster produces
               the chunk's records itself, 64 px tiles as 16 blocks of
               16x16 pixels (a non-portable cluster), launch bounds that
-              cap a cluster kernel at 64 registers (4 blocks an SM);
+              cap a cluster kernel at 64 registers (4 blocks an SM); K4
+              pushes each block's partials of a row into the row's owner
+              block's shared memory, in one buffer guarded by a second
+              cluster barrier, and walks only the rows whose support
+              reaches the block;
   split       the staging split over the cluster (``SPLIT``, patched into
               ``composite.cuh``): block r produces rows [r S, (r + 1) S) of
               each chunk, S = 128 / CLUSTER, into its own shared memory
@@ -21,14 +25,26 @@ changed (``VARIANTS``), built as ``splatjax_torch.kernels`` builds it, into
   strips      64 px tiles as 8 blocks of 64x8 pixels (512 threads, the
               largest portable cluster);
   uncapped    no register cap;
-  split_uncapped  the split staging with no register cap.
+  split_uncapped  the split staging with no register cap;
+  k4_pull     K4's owner block reads the row's partials from each block's
+              shared memory (``map_shared_rank``) after the barrier,
+              instead of each block storing them into the owner's;
+  k4_uncapped K4 with no register cap;
+  k4_strips   K4's 64 px tiles as 8 blocks of 64x8 pixels (512 threads);
+  k4_skip_test  K4 walking every row of a chunk and testing each row's
+              bit, instead of only the reached rows;
+  k4_double   K4's slots in two buffers by chunk parity, so one cluster
+              barrier a chunk (not two), at 3 blocks an SM (not 4).
 
 On ``chip_smoke.py``'s 1M-splat 1920x1080 frame it times, per variant and
-edge, K2 (32-byte rows, at the camera the bins were built for) and K3 (at
-an orbit eye) by CUDA events (``chip_smoke.kernel_ms``), prints each
-instantiation's registers and local memory a thread, and checks that its
-outputs equal the shipped kernels' bit for bit (every variant computes the
-same sums in the same order). Ends with the card's name and power limit.
+edge, K2 (32-byte rows, at the camera the bins were built for), K3 (at an
+orbit eye) and K4 (16-byte rows, a seeded cotangent, as in training) by
+CUDA events (``chip_smoke.kernel_ms``), the kernels a variant changes;
+prints each instantiation's registers, local memory a thread and
+occupancy, and checks that its outputs equal the shipped kernels' bit for
+bit (every variant computes the same sums in the same order; K4 in 64x8
+strips adds them in another, and is held to chip_smoke.py's K4_TOL_FULL
+of the shipped rows). Ends with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -100,15 +116,64 @@ UNCAPPED = [(f, "__launch_bounds__(Composite<TILE>::THREADS,\n"
              "__launch_bounds__(Composite<TILE>::THREADS)")
             for f in ("rasterize_fwd.cu", "rasterize_cached.cu")]
 
+BWD = "rasterize_bwd.cu"
+K4_PULL = [(
+    BWD, """      float4* dst = cluster.map_shared_rank(
+          &s_slot[(tid % OWNED) * C + rank][0],
+          (unsigned)(tid / OWNED));""",
+    "      float4* dst = &s_slot[tid][0];"), (
+    BWD, "        const float4* in = &s_slot[tid * C + b][0];",
+    "        const float4* in = cluster.map_shared_rank(&s_slot[r][0], b);")]
+K4_UNCAPPED = [(
+    BWD, "__launch_bounds__(BackwardCluster<TILE>::THREADS,\n"
+    "                                  BackwardCluster<TILE>::MIN_BLOCKS)",
+    "__launch_bounds__(BackwardCluster<TILE>::THREADS)")]
+K4_STRIPS = [(
+    BWD, "template <int TILE>\nstruct BackwardCluster {",
+    "template <>\nstruct BackwardSub<64> {\n  static constexpr int W = 64;\n"
+    "  static constexpr int H = 8;\n};\n\n"
+    "template <int TILE>\nstruct BackwardCluster {")]
+K4_SKIP_TEST = [(
+    BWD, """    for (int wr = CHUNK / 32 - 1; wr >= 0; --wr) {
+      for (unsigned bits = s_reach[wr]; bits != 0;) {
+        const int i = wr * 32 + 31 - __clz(bits);
+        bits &= ~(1u << (i % 32));""",
+    """    for (int wr = 0; wr < 1; ++wr) {
+      for (int i = hi - 1; i >= lo; --i) {
+        if (!((s_mask[i] >> rank) & 1u)) continue;""")]
 
-# variant -> its edits of the sources
+K4_DOUBLE = [(
+    BWD, "SLOT_BYTES = CHUNK * 3 * 16;", "SLOT_BYTES = 2 * CHUNK * 3 * 16;"), (
+    BWD, "&s_slot[(tid % OWNED) * C + rank][0]",
+    "&s_slot[(c & 1) * CHUNK + (tid % OWNED) * C + rank][0]"), (
+    BWD, "&s_slot[tid * C + b][0]", "&s_slot[(c & 1) * CHUNK + tid * C + b][0]"), (
+    BWD, "    cluster_wait();  // the owners have read the slots",
+    "    if (c == c_done - 1) cluster_wait();"), (
+    BWD, "    cluster_arrive();\n  }\n  cluster_wait();\n}",
+    "  }\n  if (c_done == 0) cluster_wait();\n}")]
+
+# variant -> (the kernels it changes, its edits of the sources)
+FORWARD, BACKWARD = ("K2", "K3"), ("K4",)
 VARIANTS = {
-    "shipped": [],
-    "split": SPLIT,
-    "strips": STRIPS,
-    "uncapped": UNCAPPED,
-    "split_uncapped": SPLIT + UNCAPPED,
+    "shipped": (FORWARD + BACKWARD, []),
+    "split": (FORWARD, SPLIT),
+    "strips": (FORWARD, STRIPS),
+    "uncapped": (FORWARD, UNCAPPED),
+    "split_uncapped": (FORWARD, SPLIT + UNCAPPED),
+    "k4_pull": (BACKWARD, K4_PULL),
+    "k4_uncapped": (BACKWARD, K4_UNCAPPED),
+    "k4_strips": (BACKWARD, K4_STRIPS),
+    "k4_skip_test": (BACKWARD, K4_SKIP_TEST),
+    "k4_double": (BACKWARD, K4_DOUBLE),
 }
+# K4 variants that group a 64 px tile's pixels otherwise, so add each
+# instance's sums in another order: held to K4_TOL_FULL of the shipped rows
+REGROUPED = ("k4_strips",)
+# kernel -> (its library, C entry, counter)
+LIBRARY = {"K2": ("rasterize_fwd", "splat_rasterize_fwd", "rasterize_fwd"),
+           "K3": ("rasterize_cached", "splat_rasterize_cached_fwd",
+                  "rasterize_cached"),
+           "K4": ("rasterize_bwd", "splat_rasterize_bwd", "rasterize_bwd")}
 
 
 def variant_sources(name: str) -> str:
@@ -116,7 +181,7 @@ def variant_sources(name: str) -> str:
     src = os.path.join(OUT, name, "csrc")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(CSRC, src)
-    for fname, anchor, new in VARIANTS[name]:
+    for fname, anchor, new in VARIANTS[name][1]:
         path = os.path.join(src, fname)
         with open(path) as f:
             text = f.read()
@@ -151,6 +216,7 @@ def main(argv: list[str]) -> int:
     from splatjax_torch.ops.rasterize import (
         rasterize_cached_fwd, rasterize_fwd,
     )
+    from splatjax_torch.ops.rasterize_vjp import rasterize_bwd
 
     scene = tile_scene(load_splat(cs.FIXTURE), cs.N_SPLATS)
     cam = make_camera(cs.EYE, (0, 0, 0), width=cs.WIDTH, height=cs.HEIGHT)
@@ -165,33 +231,43 @@ def main(argv: list[str]) -> int:
         _, capacity_e = cs.redraw_capacity(scene, tile)
         k3 = cs.k3_args(cs.cached_bins(scene, cam, capacity_e, tile), eye,
                         0.999, 1e-4, tile)
+        k4 = cs.k4_case(scene, cam, capacity, True, 0.999, False, 4,
+                        tile=tile)[2]
         calls[tile] = {
-            "K2": (lambda a=k2: rasterize_fwd(*a),
-                   ("rasterize_fwd", "splat_rasterize_fwd"), "rasterize_fwd"),
-            "K3": (lambda a=k3: rasterize_cached_fwd(*a),
-                   ("rasterize_cached", "splat_rasterize_cached_fwd"),
-                   "rasterize_cached")}
+            "K2": lambda a=k2: rasterize_fwd(*a),
+            "K3": lambda a=k3: rasterize_cached_fwd(*a),
+            "K4": lambda a=k4: rasterize_bwd(*a, packed16=True)}
     want = {}
     for name in ["shipped"] + [v for v in argv or VARIANTS if v != "shipped"]:
+        changed = VARIANTS[name][0]
         use_sources(variant_sources(name))
-        kernels.build(["rasterize_fwd", "rasterize_cached"])
+        kernels.build(sorted({LIBRARY[k][0] for k in changed}))
         for tile in EDGES:
-            for kernel, (fn, entry, counter) in calls[tile].items():
+            for kernel in changed:
+                fn = calls[tile][kernel]
+                lib, entry, counter = LIBRARY[kernel]
                 out = fn()
                 cs.sync()
+                held = "outputs bit-equal to shipped"
                 if name == "shipped":
                     want[tile, kernel] = out
+                elif name in REGROUPED and tile == 64:
+                    cs.compare_k4(out, want[tile, kernel], True,
+                                  f"{name} against shipped, {tile} px",
+                                  tol=cs.K4_TOL_FULL)
+                    held = "outputs within K4_TOL_FULL of shipped"
                 elif not torch.equal(out, want[tile, kernel]):
                     raise AssertionError(f"{name}: {kernel} at {tile} px "
                                          "differs from the shipped kernel")
-                ms, timed = cs.kernel_ms(fn, 10, entry)
-                a = kernels.rasterizer_attributes(counter, tile)
+                ms, timed = cs.kernel_ms(fn, 10, (lib, entry))
+                a = kernels.rasterizer_attributes(counter, tile,
+                                                  packed16=kernel == "K4")
                 cs.log(f"[variant] {name}: {kernel} at {tile} px {ms:.4f} ms "
                        f"({timed}), {a['num_regs']} registers, "
                        f"{a['local_bytes']} B local, blocks of "
-                       f"{a['max_threads']}" + (
-                           "" if name == "shipped" else
-                           ", outputs bit-equal to shipped"))
+                       f"{a['max_threads']}, {a['blocks_per_sm']} blocks an "
+                       f"SM, {a['clusters']} clusters at once" + (
+                           "" if name == "shipped" else f", {held}"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

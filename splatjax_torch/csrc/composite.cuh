@@ -89,6 +89,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
 #include "rows.cuh"
 
 namespace {
@@ -337,49 +338,13 @@ __device__ __forceinline__ void composite_tile(const Source& src,
 
 // Launches ``kernel`` (a composite_tile<TILE> kernel): one block per tile
 // up to 16 px, one cluster of Composite<TILE>::CLUSTER blocks per tile
-// above (opting the kernel in to a non-portable cluster size past 8).
-// Returns the launch's cudaError_t.
+// above. Returns the launch's cudaError_t.
 template <int TILE, class Kernel, class... Args>
 int launch_composite(Kernel kernel, int num_tiles, cudaStream_t stream,
                      Args... args) {
   using G = Composite<TILE>;
-  if constexpr (G::CLUSTER == 1) {
-    kernel<<<num_tiles, G::THREADS, 0, stream>>>(args...);
-    return (int)cudaGetLastError();
-  } else {
-    if constexpr (G::CLUSTER > 8) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return (int)err;
-    }
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = G::CLUSTER;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)num_tiles * G::CLUSTER);
-    cfg.blockDim = dim3(G::THREADS);
-    cfg.stream = stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-    const cudaError_t last = cudaGetLastError();
-    return (int)(err != cudaSuccess ? err : last);
-  }
-}
-
-// cudaFuncGetAttributes of ``kernel``: registers a thread, local memory
-// (spills) bytes a thread, the largest block it can launch.
-template <class Kernel>
-int kernel_attributes(Kernel kernel, int* out) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = attr.maxThreadsPerBlock;
-  return 0;
+  return launch_tiles<G::CLUSTER>(kernel, (unsigned)num_tiles * G::CLUSTER,
+                                  G::THREADS, 0, stream, args...);
 }
 
 }  // namespace

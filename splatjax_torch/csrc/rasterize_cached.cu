@@ -206,17 +206,25 @@ auto cached_kernel() {
   }
 }
 
+template <int TILE>
+int cached_attributes(int* out) {
+  using G = Composite<TILE>;
+  return kernel_attributes<G::CLUSTER>(cached_kernel<TILE>(), G::THREADS, 0,
+                                       out);
+}
+
 }  // namespace
 
-// out: 3 int32, cudaFuncGetAttributes of the K3 instantiation at tile edge
-// tile (8, 16, 32 or 64): registers a thread, local memory bytes a thread
-// (spills), the largest block.
+// out: 5 int32, kernel_attributes (launch.cuh) of the K3 instantiation at
+// tile edge tile (8, 16, 32 or 64): registers a thread, local memory bytes
+// a thread (spills), the largest block, blocks an SM, clusters on the
+// device.
 extern "C" int splat_rasterize_cached_attributes(int tile, int* out) {
   switch (tile) {
-    case 8: return kernel_attributes(cached_kernel<8>(), out);
-    case 16: return kernel_attributes(cached_kernel<16>(), out);
-    case 32: return kernel_attributes(cached_kernel<32>(), out);
-    case 64: return kernel_attributes(cached_kernel<64>(), out);
+    case 8: return cached_attributes<8>(out);
+    case 16: return cached_attributes<16>(out);
+    case 32: return cached_attributes<32>(out);
+    case 64: return cached_attributes<64>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -72,8 +72,11 @@ auto fwd_kernel() {
 
 template <int TILE>
 int fwd_attributes(int packed16, int* out) {
-  return packed16 ? kernel_attributes(fwd_kernel<TILE, true>(), out)
-                  : kernel_attributes(fwd_kernel<TILE, false>(), out);
+  using G = Composite<TILE>;
+  return packed16 ? kernel_attributes<G::CLUSTER>(fwd_kernel<TILE, true>(),
+                                                  G::THREADS, 0, out)
+                  : kernel_attributes<G::CLUSTER>(fwd_kernel<TILE, false>(),
+                                                  G::THREADS, 0, out);
 }
 
 template <int TILE>
@@ -118,9 +121,10 @@ extern "C" int splat_rasterize_fwd(const int* rows, const int* starts,
   }
 }
 
-// out: 3 int32, cudaFuncGetAttributes of the K2 instantiation at tile edge
-// tile (8, 16, 32 or 64) and row width (packed16): registers a thread,
-// local memory bytes a thread (spills), the largest block.
+// out: 5 int32, kernel_attributes (launch.cuh) of the K2 instantiation at
+// tile edge tile (8, 16, 32 or 64) and row width (packed16): registers a
+// thread, local memory bytes a thread (spills), the largest block, blocks
+// an SM, clusters on the device.
 extern "C" int splat_rasterize_fwd_attributes(int tile, int packed16,
                                               int* out) {
   switch (tile) {

@@ -161,25 +161,34 @@ def timed_launches(lib: str, name: str) -> Iterator[list]:
         _functions[key] = raw
 
 
-def rasterizer_attributes(name: str, tile: int) -> dict[str, int]:
-    """``cudaFuncGetAttributes`` of forward rasterizer ``name`` (K2's
-    counters ``rasterize_fwd`` and ``rasterize_fwd16``, or K3's
-    ``rasterize_cached``) at tile edge ``tile``: registers a thread
-    (``num_regs``), local memory bytes a thread, which spills use
-    (``local_bytes``), and the largest block (``max_threads``)."""
-    out = (ctypes.c_int * 3)()
+def rasterizer_attributes(name: str, tile: int,
+                          packed16: bool = False) -> dict[str, int]:
+    """``cudaFuncGetAttributes`` of rasterizer ``name`` (K2's counters
+    ``rasterize_fwd`` and ``rasterize_fwd16``, K3's ``rasterize_cached``,
+    or K4's ``rasterize_bwd``, whose row width is ``packed16``) at tile
+    edge ``tile``: registers a thread (``num_regs``), local memory bytes a
+    thread, which spills use (``local_bytes``), the largest block
+    (``max_threads``), the blocks an SM holds at once (``blocks_per_sm``)
+    and, for the thread-block cluster kernels, the clusters the device
+    holds at once (``clusters``, else 0)."""
+    out = (ctypes.c_int * 5)()
     ptr = ctypes.POINTER(ctypes.c_int)
     if name == "rasterize_cached":
         fn = function(name, "splat_rasterize_cached_attributes",
                       [ctypes.c_int, ptr])
         err = fn(tile, out)
+    elif name == "rasterize_bwd":
+        fn = function(name, "splat_rasterize_bwd_attributes",
+                      [ctypes.c_int, ctypes.c_int, ptr])
+        err = fn(tile, int(packed16), out)
     else:
         fn = function("rasterize_fwd", "splat_rasterize_fwd_attributes",
                       [ctypes.c_int, ctypes.c_int, ptr])
         err = fn(tile, int(name == "rasterize_fwd16"), out)
     if err != 0:
         raise RuntimeError(f"{name} attributes at {tile} px: cudaError {err}")
-    return dict(num_regs=out[0], local_bytes=out[1], max_threads=out[2])
+    return dict(num_regs=out[0], local_bytes=out[1], max_threads=out[2],
+                blocks_per_sm=out[3], clusters=out[4])
 
 
 def tiled_counter(name: str, tile: int) -> str:

@@ -47,9 +47,11 @@ from splatjax_torch.parallel.mesh import AxisGroup, AxisName, axis_group
 from splatjax_torch.render import default_capacity, resolve_alpha_clip
 from splatjax_torch.scene import GaussianScene, build_covariances
 
-# Most bands one gaussian is sent to (doubled for load-balanced bands,
-# which can be half the equal height); spans past the window are counted
-# per losing band in the overflow vector.
+# Most bands one gaussian is sent to, doubled for load-balanced bands,
+# whose heights range from one tile row (``_balanced_boundaries``) to 4x
+# the equal share (``max_band_rows``), so a splat may span more of them
+# than the doubled window holds. Spans past the window are not dropped
+# silently: each is counted, per losing band, in the overflow vector.
 MAX_BANDS = 4
 
 

@@ -281,7 +281,8 @@ def _dense_case(edge, kind):
     (``cached``) at tile edge ``edge``, clip 0.999 and an early stop of
     0.02, which ends the tiles inside the view before their last chunk. Returns the tile config,
     the tiles' bounds, the decoded features of every instance row (K2's
-    packed rows, K3's projected cached rows) and the plain output."""
+    packed rows, K3's projected cached rows), the plain output and K2's
+    packed rows (None for K3)."""
     from splatjax_torch.io import synthetic_scene as t_synthetic_scene
     from splatjax_torch.ops.binning import (
         bin_gaussians, features_from_projection,
@@ -306,7 +307,7 @@ def _dense_case(edge, kind):
             b.starts, b.ends, cfg, 0.999, es)
         feats = project_cached_rows(bins.prm, cam.modelview, cam.projection,
                                     80, 64)
-        return cfg, b, feats, out
+        return cfg, b, feats, out, None
     packed16 = kind == "fwd16"
     proj = project_gaussians(
         scene.means, build_covariances(scene.quats, scene.scales),
@@ -318,7 +319,7 @@ def _dense_case(edge, kind):
                        b.gauss_id)
     out = rasterize_fwd_plain(rows, b.starts, b.ends, cfg, 0.999, es,
                               packed16=packed16)
-    return cfg, b, decode_rows(rows, packed16), out
+    return cfg, b, decode_rows(rows, packed16), out, rows
 
 
 @pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
@@ -330,7 +331,7 @@ def test_chunks_done_is_one_value_per_tile(edge, kind):
     only. The early stop fires before the last chunk of some tile."""
     from splatjax_torch.ops.rasterize import CHUNK
 
-    _, b, _, out = _dense_case(edge, kind)
+    _, b, _, out, _ = _dense_case(edge, kind)
     done = out[:, 4]
     assert torch.equal(done, done[:, :1].expand_as(done))
     astart = b.starts.long() // CHUNK * CHUNK
@@ -365,7 +366,7 @@ def _rect_holds(mxl, myl, ca, cb, cc, opa, edge):
 def test_support_rect_holds_the_scene_rows(edge, kind):
     """Every fragment of the dense scene that passes the cutoff lies inside
     its instance's support rectangle, for each tile's own rows."""
-    cfg, b, f, _ = _dense_case(edge, kind)
+    cfg, b, f, _, _ = _dense_case(edge, kind)
     passed = 0
     for t in range(cfg.num_tiles):
         k = torch.arange(int(b.starts[t]), int(b.ends[t]))
@@ -403,3 +404,64 @@ def test_support_rect_holds_random_conics(seed, edge, log_ratio, bf16):
     if bf16:
         t[2:5] = [v.to(torch.bfloat16).to(torch.float32) for v in t[2:5]]
     _rect_holds(*t, edge)
+
+
+SUB = 16   # the pixel edge of a cluster block's sub-block at 32 and 64 px
+K4_TOL = 1e-4  # chip_smoke.py's K4_TOL: x each gradient channel's max
+
+
+@pytest.mark.parametrize("packed16", (False, True))
+@pytest.mark.parametrize("edge", (32, 64))
+def test_k4_rows_split_over_sub_blocks(edge, packed16):
+    """What the 32 and 64 px K4 clusters compute, on the plain version: an
+    instance's gradient row is linear in the cotangent, so the row with
+    ``g_out`` is the sum over the tile's 16x16 sub-blocks of the rows
+    with ``g_out`` zeroed outside each, the blocks' partials that the
+    cluster adds (32-byte rows, within K4_TOL of each channel's max: only
+    the grouping of the pixel sums differs). Where an instance's support
+    rectangle misses a sub-block, that sub-block's row is exactly zero, at
+    both row widths: the block that skips the instance adds nothing."""
+    from splatjax_torch.ops.rasterize import support_rect
+    from splatjax_torch.ops.rasterize_vjp import rasterize_bwd_plain
+    from splatjax_torch.ops.segreduce import unpack_bf16_pairs
+
+    cfg, b, f, out, rows = _dense_case(edge, "fwd16" if packed16 else
+                                       "fwd32")
+    rng = np.random.default_rng(11)
+    g_out = torch.from_numpy(rng.standard_normal(
+        (cfg.num_tiles, 8, cfg.pixels_per_tile)).astype(np.float32))
+
+    def grad(g):
+        g = rasterize_bwd_plain(rows, b.starts, b.ends, out, g, cfg, 0.999,
+                                packed16=packed16)
+        return unpack_bf16_pairs(g) if packed16 else g
+
+    full = grad(g_out)
+    cols = edge // SUB
+    pix = torch.arange(cfg.pixels_per_tile)
+    sub_of_pixel = (pix // edge // SUB) * cols + pix % edge // SUB
+    parts = [grad(g_out * (sub_of_pixel == k).float())
+             for k in range(cols * cols)]
+    if not packed16:
+        scale = full.abs().amax(dim=0).clamp_min(1e-30)
+        assert bool(((sum(parts) - full).abs() <= K4_TOL * scale).all())
+
+    # instance k's tile and the sub-blocks its support rectangle misses
+    skipped = nonzero = 0
+    h = 0.5 * edge
+    for t in range(cfg.num_tiles):
+        k = torch.arange(int(b.starts[t]), int(b.ends[t]))
+        ox = float((t % cfg.tiles_x) * edge) + h
+        oy = float((t // cfg.tiles_x) * edge) + h
+        x0, x1, y0, y1 = support_rect(
+            f[0][k] - ox, f[1][k] - oy, f[2][k], f[3][k], f[4][k],
+            f[8][k].clamp_min(1e-30).log(), edge)
+        for sb in range(cols * cols):
+            lo_x = (sb % cols) * SUB - h + 0.5
+            lo_y = (sb // cols) * SUB - h + 0.5
+            miss = (x0 > lo_x + SUB - 1) | (x1 < lo_x) \
+                | (y0 > lo_y + SUB - 1) | (y1 < lo_y)
+            assert bool((parts[sb][k[miss]] == 0).all())
+            skipped += int(miss.sum())
+            nonzero += int((parts[sb][k[~miss]] != 0).any(dim=1).sum())
+    assert skipped > 0 and nonzero > 0
