@@ -119,14 +119,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         demo_train's held-out PSNR above its start), every PNG decoded
         back to its frame (K1, K2, K2 16-byte, K3, K4, K7);
      j. tile edges: the registers, local (spill) bytes and largest block of
-        K2 (both widths) and K3 at every edge by cudaFuncGetAttributes (the
-        32 and 64 px thread-block cluster kernels must not spill); K2 (32-
-        and 16-byte rows), K3 and K4 at 8, 32 and 64 px
+        K2 (both widths), K3 and K4 (both widths) at every edge by
+        cudaFuncGetAttributes (the 8 px kernels and the 32 and 64 px
+        thread-block cluster kernels must not spill); K2 (32- and 16-byte
+        rows), K3 and K4 at 8, 32 and 64 px
         tiles against their plain versions on every tile of the 192x128 gate
         scene and on the full-width frame (as phases 3, 4 and 8; chunks_done
         one value over every pixel of every tile of the full frame, for K2
-        and K3 at every edge), the parity and gradient gates at each edge,
-        the tail diagnostics at 32 and 64 px; then, counted: a one-rank
+        and K3 at every edge); at 8 px K2 (both widths) and K3 again on the
+        gate scene with the instance rows moved 0, 1, 63, 64, 65 and 127
+        rows on in their buffer, which moves the global chunk grid under
+        the tiles (``check_shifted_chunks``); the parity and gradient gates
+        at each edge, the tail diagnostics at 8, 32 and 64 px; then,
+        counted: a one-rank
         ``render_sharded(tile_size=32)`` within 1e-4 of ``render()``, and
         at 8, 16, 32 and 64 px 10 serving frames through
         ``SplatRenderer(tile_size=t)``, L1 + Adam steps of
@@ -604,7 +609,7 @@ def check_k2_full(scene, cam, capacity, packed16, tile=16):
     walked = walked_instances(b, out_k)
     p = cfg.pixels_per_tile
     b_ms, b_by = bound(
-        walked * 32 + cfg.num_tiles * (8 * p * 4 + 8),
+        walked * (16 if packed16 else 32) + cfg.num_tiles * (8 * p * 4 + 8),
         walked * p * K2_OPS_PER_FRAGMENT,
     )
     log(f"[k2] full frame, {16 if packed16 else 32}-byte rows"
@@ -614,6 +619,96 @@ def check_k2_full(scene, cam, capacity, packed16, tile=16):
         f"{b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+SHIFTS = (0, 1, 63, 64, 65, 127)   # dummy rows put before the instance rows
+
+
+def check_shifted_chunks(gate_scene, gate_cam, tile):
+    """K2 (both row widths) and K3 on every tile of the gate scene against
+    their plain versions with the instance rows moved s rows on in their
+    buffer (s dummy rows before them, ``starts``/``ends`` moved by s), for
+    each s in SHIFTS: the chunks are aligned to global multiples of 128,
+    so each s moves the chunk grid under the tiles; chunks whose live rows
+    lie all past row 64, all before it, or are one row must each occur
+    (``chunk_kinds``, counted over the shifts and printed). chunks_done
+    must be one value a tile at every s. Returns the largest
+    error of each kernel's counter."""
+    import torch
+    from splatjax_torch.ops.rasterize import (
+        rasterize_cached_fwd, rasterize_cached_fwd_plain, rasterize_fwd,
+        rasterize_fwd_plain,
+    )
+
+    def k2_case(packed16):
+        cfg, b, rows = binned_rows(gate_scene, gate_cam, 1 << 16, 1e-4,
+                                   packed16, tile)
+
+        def run(r, starts, ends, clip, es):
+            return (rasterize_fwd(r, starts, ends, cfg, clip, es, None,
+                                  packed16),
+                    rasterize_fwd_plain(r, starts, ends, cfg, clip, es, None,
+                                        packed16=packed16))
+        return ("rasterize_fwd16" if packed16 else "rasterize_fwd", "K2",
+                K2_TOL, f"{16 if packed16 else 32}-byte rows", rows,
+                b.starts, b.ends, run)
+
+    bins = cached_bins(gate_scene, gate_cam, 1 << 16, tile)
+    prm, camera, _, _, cfg = k3_args(bins, gate_cam, None, None, tile)[:5]
+
+    def run_k3(r, starts, ends, clip, es):
+        return (rasterize_cached_fwd(r, camera, starts, ends, cfg, clip, es),
+                rasterize_cached_fwd_plain(r, camera, starts, ends, cfg, clip,
+                                           es))
+
+    cases = [k2_case(False), k2_case(True),
+             ("rasterize_cached", "K3", K3_TOL, "cached rows", prm,
+              bins.bins.starts, bins.bins.ends, run_k3)]
+    err = {}
+    for name, kernel, tol, what, rows, starts, ends, run in cases:
+        err[name] = 0.0
+        kinds = [sum(n) for n in zip(*(chunk_kinds(starts + s, ends + s)
+                                       for s in SHIFTS))]
+        log(f"[{kernel.lower()}] {what}{at_tile(tile)}, rows moved "
+            f"{', '.join(map(str, SHIFTS))} on: (tile, chunk)s whose live "
+            f"rows lie all past row 64 {kinds[0]}, all before it "
+            f"{kinds[1]}, one row {kinds[2]}")
+        if min(kinds) == 0:
+            raise AssertionError(f"{kernel} ({what}): the row shifts miss a "
+                                 f"kind of chunk: {kinds}")
+        for s in SHIFTS:
+            moved = torch.cat([rows.new_zeros((s,) + rows.shape[1:]), rows])
+            for clip, es in ((0.999, 1e-4), (None, 0.0)):
+                out_k, out_p = run(moved, starts + s, ends + s, clip, es)
+                label = (f"{what}, rows moved {s} on, all "
+                         f"{out_k.shape[0]} tiles, clip={clip} "
+                         f"early_stop={es}" + at_tile(tile))
+                err[name] = max(err[name], compare_k2(
+                    out_k, out_p, label, kernel=kernel, tol=tol))
+                check_chunks_uniform(out_k, label, kernel=kernel)
+    return err
+
+
+def chunk_kinds(starts, ends):
+    """Of the (tile, chunk)s of the tiles' rows [starts, ends) on the global
+    grid of CHUNK rows, those whose live rows [lo, hi) lie all past row 64
+    (lo >= 64), all before it (hi <= 64), and those of one row."""
+    from splatjax_torch.ops.rasterize import CHUNK
+
+    live = ends > starts
+    start, end = starts[live].long(), ends[live].long()
+    astart = start // CHUNK * CHUNK
+    kinds = [0, 0, 0]
+    for c in range(int((end - astart - 1).max()) // CHUNK + 1
+                   if start.numel() else 0):
+        base = astart + c * CHUNK
+        on = base < end
+        lo = (start - base).clamp_min(0)[on]
+        hi = (end - base).clamp_max(CHUNK)[on]
+        for i, hit in enumerate((lo >= CHUNK // 2, hi <= CHUNK // 2,
+                                 hi - lo == 1)):
+            kinds[i] += int(hit.sum())
+    return kinds
 
 
 def cached_bins(scene, cam, capacity, tile=16):
@@ -914,7 +1009,8 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
 
     walked16 = walked_per_tile(b, saved)
     walked_ends = (b.starts.long() + walked16).to(torch.int32)
-    k4_balance(rows16, b, cfg, walked_ends)
+    if tile > 16:
+        k4_balance(rows16, b, cfg, walked_ends)
     args = (saved, g_out, cfg, 0.999)
     by_len = rasterize_bwd(rows16, b.starts, b.ends, *args, packed16=True)
     by_walked = rasterize_bwd(rows16, b.starts, walked_ends, *args,
@@ -2717,17 +2813,21 @@ def tile_kernel_checks(gate_scene, gate_cam, scene, cam, start, tile):
                                                 tile)
     rows["rasterize_bwd"]["max_abs_err"] = max(
         rows["rasterize_bwd"]["max_abs_err"], k4_32["max_abs_err"], err)
+    if tile == 8:
+        for name, e in check_shifted_chunks(gate_scene, gate_cam,
+                                            tile).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     gates = dict(parity=parity_gate(gate_scene, gate_cam, tile, 1 << 16),
                  grad=gradient_gate(gate_scene, gate_cam, tile, 1 << 16))
-    if tile > 16:
-        tail_diagnostics(scene, cam, capacity, tile)
+    tail_diagnostics(scene, cam, capacity, tile)
     return rows, gates
 
 
 def rasterizer_registers():
     """cudaFuncGetAttributes of K2 (both row widths), K3 and K4 (both row
-    widths) at every tile edge, one ``[tiles]`` line each; the cluster
-    instantiations (32 and 64 px) must not spill (no local memory)."""
+    widths) at every tile edge, one ``[tiles]`` line each; the 8 px
+    kernels and the cluster instantiations (32 and 64 px) must not spill
+    (no local memory)."""
     from splatjax_torch import kernels
 
     kinds = [(n, False) for n in RASTERIZERS[:3]] + [
@@ -2741,7 +2841,7 @@ def rasterizer_registers():
                 f"{a['local_bytes']} B of local memory a thread, blocks of "
                 f"up to {a['max_threads']} threads, {a['blocks_per_sm']} "
                 f"blocks an SM, {a['clusters']} clusters at once")
-            if tile > 16 and a["local_bytes"] > 0:
+            if tile != 16 and a["local_bytes"] > 0:
                 raise AssertionError(f"{what} at {tile} px spills: {a}")
 
 

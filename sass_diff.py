@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Compare the compiled SASS of the port's CUDA kernels with another tree's.
 
-    python3 sass_diff.py OTHER_TREE [SOURCE ...]
+    python3 sass_diff.py OTHER_TREE [--csrc DIR] [SOURCE ...]
 
 OTHER_TREE is a checkout of another commit (for example ``git archive``
 of the parent, unpacked under ``build/``). Each source of
 ``splatjax_torch/csrc`` (default: the three rasterizers) is compiled to a
-cubin from both trees for ``sm_90a`` at ``-O3``, as
+cubin from both trees (this tree's sources, or those in DIR, for example
+a variant's under ``build/cluster_variants/<variant>/csrc``) for
+``sm_90a`` at ``-O3``, as
 ``splatjax_torch.kernels`` builds it, and disassembled with ``cuobjdump
 -sass``. For every kernel of the
 other tree it prints its instruction count and the kernels of this tree
@@ -17,6 +19,7 @@ instantiation of the same kernel, tile edge and row width. Needs ``nvcc`` and
 """
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import subprocess
@@ -59,10 +62,11 @@ def kernel_key(name: str) -> tuple[str, int, bool]:
             int(re.search(r"ILi(\d+)E", name).group(1)), "Lb1E" in name)
 
 
-def compare(other: str, source: str) -> None:
+def compare(other: str, source: str,
+            csrc: str = os.path.join(HERE, CSRC)) -> None:
     with tempfile.TemporaryDirectory() as d:
         theirs = disassemble(os.path.join(other, CSRC, source), d)
-        ours = disassemble(os.path.join(HERE, CSRC, source), d)
+        ours = disassemble(os.path.join(csrc, source), d)
     for name, body in theirs.items():
         same = [n for n, b in ours.items() if b == body]
         print(f"{source}: {kernel_key(name)}: {len(body)} instructions; "
@@ -76,11 +80,14 @@ def compare(other: str, source: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    for source in argv[1:] or SOURCES:
-        compare(argv[0], source)
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("other")
+    parser.add_argument("--csrc", default=os.path.join(HERE, CSRC))
+    parser.add_argument("sources", nargs="*", default=list(SOURCES))
+    args = parser.parse_intermixed_args(argv)
+    for source in args.sources:
+        compare(args.other, source, args.csrc)
     return 0
 
 

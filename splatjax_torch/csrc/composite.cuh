@@ -32,21 +32,31 @@
 // * each thread owns PIX vertically adjacent pixels of its block, so every
 //   shared load of an instance's features serves all of them; GROUP =
 //   pixels / PIX threads cover the block, and the block's two such groups
-//   split each chunk's instances between them, the front 64 and the back
-//   64. At 16 px, and in every block of a cluster, PIX = 2 and GROUP = 128
-//   (a warp covers a 16x4 patch; 256 threads, so a deep tile's walk runs
-//   on 8 warps a block). At 8 px a tile has 64 pixels: PIX = 1, GROUP =
-//   64, 128 threads;
+//   split each chunk's instances between them. At 16 px, and in every
+//   block of a cluster, PIX = 2 and GROUP = 128 (a warp covers a 16x4
+//   patch; 256 threads, so a deep tile's walk runs on 8 warps a block),
+//   and the groups take the chunk's front 64 rows and its back 64. At 8 px
+//   a tile has 64 pixels: PIX = 1, GROUP = 64, 128 threads, a warp covers
+//   an 8x4 half of the tile, and the groups split the chunk's live rows
+//   [lo, hi) evenly at (lo + hi) / 2: an 8 px tile of a 1080p frame of
+//   1M splats walks about 95 instances on average, so most of its chunks
+//   are partial, and fixed halves would often leave one group idle until
+//   the join. Four one-warp groups of two pixels a thread, each walking a
+//   quarter of the live rows over the whole tile, were slower on the H100
+//   (64 registers, a four-segment join);
 // * the tile's instances [start, end) are walked in 128-instance chunks
 //   aligned to GLOBAL multiples of 128 from astart = start / 128 * 128, the
 //   chunking splatjax uses, so `chunks_done` (output row 4) is the same
 //   contract the backward re-walks;
-// * per chunk, the first group's threads produce the instances' features
-//   from the row source, one each (two each at 8 px, where GROUP = 64),
-//   and store them as three float4 records,
-//   (c0, c1, c2, c3), (c4, c5, threshold, depth) and (r, g, b, -): a walked
-//   fragment costs two 16-byte broadcast loads for both pixels, a third
-//   only when one of them is inside the support;
+// * per chunk, the instances' features are produced from the row source,
+//   one row a thread: the first group's threads at 16 px and in a
+//   cluster, all 128 threads at 8 px, where a staged row serves only 64
+//   pixels and K3's projection costs about 190 operations a row (staging
+//   chunk c + 1 into a second buffer while chunk c is walked, a barrier
+//   fewer a chunk, was no faster there). They are stored as three float4
+//   records, (c0, c1, c2, c3), (c4, c5, threshold, depth) and (r, g, b,
+//   -): a walked fragment costs two 16-byte broadcast loads for both
+//   pixels, a third only when one of them is inside the support;
 // * before each chunk the whole tile stops if no pixel still has
 //   log T > log(early_stop) (__syncthreads_or over both pixels of every
 //   thread of the first group, which carries T; also the barrier that
@@ -62,7 +72,11 @@
 //   exp(-4) support can reach, from a rectangle that bounds the f32
 //   power's support. A block skips the chunk's instances whose bit is
 //   clear, which changes no sum. The chunk is not compacted: the groups'
-//   front and back halves stay where they are;
+//   front and back halves stay where they are. At 8 px the same skip per
+//   warp (a bit for each 8x4 half of the tile) was slower: the mask costs
+//   each staged row two square roots and two divisions, and the test a
+//   dependent shared load per walked row, more than the power polynomials
+//   it saves on the rows a warp cannot see (PERF.md, cluster_variants.py);
 // * every block of a cluster produces the whole chunk's records itself,
 //   one row a thread of its first group. Splitting that work over the
 //   cluster (block r producing 128 / CLUSTER rows, every block copying the
@@ -126,8 +140,7 @@ struct Composite {
   // and runs about 20% faster at 64 px)
   static constexpr int MIN_BLOCKS = 1024 / THREADS;
   static_assert(TILE % 8 == 0 && P % SUB_P == 0, "tile edge 8, 16, 32 or 64");
-  static_assert(CHUNK % GROUP == 0 || GROUP % CHUNK == 0,
-                "the first group produces a chunk's rows");
+  static_assert(THREADS >= CHUNK, "a thread produces each row of a chunk");
   static_assert(CLUSTER <= 32, "a warp reads the cluster's votes");
 };
 
@@ -242,15 +255,7 @@ __device__ __forceinline__ void composite_tile(const Source& src,
     const int base = astart + c * CHUNK;
     const int lo = max(start - base, 0);
     const int hi = min(end - base, CHUNK);
-    if constexpr (GROUP < CHUNK) {  // fewer threads than rows: loop
-      if (tid < GROUP) {
-        for (int r = tid; r < CHUNK; r += GROUP) {
-          if (r >= lo && r < hi) stage(base, r);
-        }
-      }
-    } else if (tid < CHUNK && tid >= lo && tid < hi) {
-      stage(base, tid);
-    }
+    if (tid < CHUNK && tid >= lo && tid < hi) stage(base, tid);
     __syncthreads();
 
     float s_ex[PIX];  // exclusive log-transmittance sum within the half
@@ -260,8 +265,12 @@ __device__ __forceinline__ void composite_tile(const Source& src,
       s_ex[j] = 0.0f;
       cr[j] = cg[j] = cbl[j] = cd[j] = 0.0f;
     }
-    const int h_lo = max(lo, half * HALF);
-    const int h_hi = min(hi, half * HALF + HALF);
+    // 8 px: the live rows split evenly, the front group taking the
+    // smaller half (it also joins); else the chunk's fixed halves
+    const int mid = (lo + hi) / 2;
+    const int h_lo = TILE == 8 ? (half == 0 ? lo : mid) : max(lo, half * HALF);
+    const int h_hi =
+        TILE == 8 ? (half == 0 ? mid : hi) : min(hi, half * HALF + HALF);
     for (int i = h_lo; i < h_hi; ++i) {
       if constexpr (C > 1) {  // the support misses this block's pixels
         if (!((__float_as_uint(s_col[i].w) >> rank) & 1u)) continue;

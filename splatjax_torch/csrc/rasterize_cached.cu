@@ -38,11 +38,12 @@
 //   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
 //   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
 //   it), so a degenerate instance decodes to the same values in both;
-// * up to 16 px the first thread group (128 threads, one row each; 64
-//   threads, two rows each, at 8 px) projects a chunk's rows; the second,
-//   which composites the chunk's back half, waits at the barrier. K3 takes
-//   about 3% longer than K2 on the same 16 px frame, for the projection
-//   and the 64-byte rows together, so the idle group costs at most that;
+// * at 16 px the first thread group (128 threads, one row each) projects
+//   a chunk's rows; the second, which composites the chunk's back half,
+//   waits at the barrier. K3 takes about 3% longer than K2 on the same
+//   16 px frame, for the projection and the 64-byte rows together, so the
+//   idle group costs at most that. At 8 px a row serves a quarter of the
+//   pixels, and all 128 threads of the block project one row each;
 // * at 32 and 64 px a cluster of 4 or 16 blocks composites a tile, and
 //   every block projects the whole chunk itself, CLUSTER times the
 //   projections; under the cluster kernels' 64-register cap (4 blocks an

@@ -15,10 +15,13 @@ the largest |gradient|, rtol 2e-3 (splatjax's own gradient contract); the
 port's entry points against each other bit-equal, and the one-rank
 ``render_sharded`` within 1e-4 of ``render``.
 
-The contracts the 32 and 64 px cluster kernels keep, on the plain versions
-(CPU, no splatjax): one chunks_done a tile, and the support rectangle that
-lets a sub-block skip an instance holding every fragment that passes the
-cutoff, on scene rows and on random conics (hypothesis).
+The contracts the 32 and 64 px cluster kernels and the 8 px kernels keep,
+on the plain versions (CPU, no splatjax): one chunks_done a tile; the
+support rectangle that lets a sub-block skip an instance holding every
+fragment that passes the cutoff, on scene rows and on random conics
+(hypothesis), also at 8 px, where cluster_variants.py's warp skip relies
+on it; and at 8 px, with no early stop, a result that does not depend on
+where the chunk grid falls.
 """
 import dataclasses
 import importlib
@@ -272,17 +275,21 @@ def test_render_sharded_one_rank(tmp_path):
         dist.destroy_process_group()
 
 
-# -- what the 32 and 64 px cluster kernels rely on, on the plain versions ----
+# -- what the 8, 32 and 64 px kernels rely on, on the plain versions ---------
+
+DENSE_EYE = (0.1, -0.2, 1.2)
+
 
 def _dense_case(edge, kind):
     """A 2000-splat scene that covers the 80x64 view (alpha above 0.98 on
-    every pixel; every tile two to fourteen 128-instance chunks deep)
-    through the plain version of K2 (``fwd32``, ``fwd16``) or K3
-    (``cached``) at tile edge ``edge``, clip 0.999 and an early stop of
-    0.02, which ends the tiles inside the view before their last chunk. Returns the tile config,
-    the tiles' bounds, the decoded features of every instance row (K2's
-    packed rows, K3's projected cached rows), the plain output and K2's
-    packed rows (None for K3)."""
+    every pixel; at 32 and 64 px every tile two to fourteen 128-instance
+    chunks deep) through the plain version of K2 (``fwd32``, ``fwd16``) or
+    K3 (``cached``) at tile edge ``edge``, clip 0.999 and an early stop of
+    0.02, which ends the tiles inside the view before their last chunk.
+    Returns the tile config, the tiles' bounds, the decoded features of
+    every instance row (K2's packed rows, K3's projected cached rows), the
+    plain output and the row buffer (K2's packed rows, K3's cached
+    parameter rows)."""
     from splatjax_torch.io import synthetic_scene as t_synthetic_scene
     from splatjax_torch.ops.binning import (
         bin_gaussians, features_from_projection,
@@ -296,7 +303,7 @@ def _dense_case(edge, kind):
 
     scene = t_synthetic_scene(2000, seed=5, extent=0.7,
                               scale_range=(0.03, 0.1), device="cpu")
-    cam = _t_cam(80, 64, (0.1, -0.2, 1.2))
+    cam = _t_cam(80, 64, DENSE_EYE)
     cfg = TileConfig(80, 64, edge, edge)
     es = 0.02
     if kind == "cached":
@@ -307,7 +314,7 @@ def _dense_case(edge, kind):
             b.starts, b.ends, cfg, 0.999, es)
         feats = project_cached_rows(bins.prm, cam.modelview, cam.projection,
                                     80, 64)
-        return cfg, b, feats, out, None
+        return cfg, b, feats, out, bins.prm
     packed16 = kind == "fwd16"
     proj = project_gaussians(
         scene.means, build_covariances(scene.quats, scene.scales),
@@ -323,12 +330,13 @@ def _dense_case(edge, kind):
 
 
 @pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
-@pytest.mark.parametrize("edge", (32, 64))
+@pytest.mark.parametrize("edge", (8, 32, 64))
 def test_chunks_done_is_one_value_per_tile(edge, kind):
     """Output row 4 (chunks_done) is one value over every pixel of a tile:
     the whole tile stops at once. The 32 and 64 px kernels vote that stop
-    across their cluster to keep it, and K4 reads it at a tile's pixel 0
-    only. The early stop fires before the last chunk of some tile."""
+    across their cluster to keep it, the 8 px kernel across its two
+    thread groups, and K4 reads it at a tile's pixel 0 only. The early
+    stop fires before the last chunk of some tile."""
     from splatjax_torch.ops.rasterize import CHUNK
 
     _, b, _, out, _ = _dense_case(edge, kind)
@@ -362,7 +370,7 @@ def _rect_holds(mxl, myl, ca, cb, cc, opa, edge):
 
 
 @pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
-@pytest.mark.parametrize("edge", (32, 64))
+@pytest.mark.parametrize("edge", (8, 32, 64))
 def test_support_rect_holds_the_scene_rows(edge, kind):
     """Every fragment of the dense scene that passes the cutoff lies inside
     its instance's support rectangle, for each tile's own rows."""
@@ -379,7 +387,7 @@ def test_support_rect_holds_the_scene_rows(edge, kind):
 
 
 @settings(max_examples=60, deadline=None)
-@given(seed=hs.integers(0, 2 ** 32 - 1), edge=hs.sampled_from((32, 64)),
+@given(seed=hs.integers(0, 2 ** 32 - 1), edge=hs.sampled_from((8, 32, 64)),
        log_ratio=hs.floats(0.0, 7.0), bf16=hs.booleans())
 def test_support_rect_holds_random_conics(seed, edge, log_ratio, bf16):
     """Random conics (eigenvalues 1e-6 to 1e8 per px^2, aspect up to 1e7,
@@ -404,6 +412,45 @@ def test_support_rect_holds_random_conics(seed, edge, log_ratio, bf16):
     if bf16:
         t[2:5] = [v.to(torch.bfloat16).to(torch.float32) for v in t[2:5]]
     _rect_holds(*t, edge)
+
+
+SHIFTS = (1, 63, 64, 65, 127)  # chip_smoke.py's row shifts past 0
+
+
+@pytest.mark.parametrize("kind", ("fwd32", "fwd16", "cached"))
+def test_plain_8px_does_not_depend_on_the_chunk_grid(kind):
+    """The plain versions of K2 and K3 at 8 px with no early stop, on the
+    instance rows moved s rows on in their buffer (s dummy rows before
+    them, ``starts``/``ends`` moved by s): chunks are aligned to global
+    multiples of 128, so s moves the chunk grid under the tiles, which
+    changes only how each tile's sums are associated, within TOL of the
+    rows in place, and the tile walks every chunk of the moved grid.
+    chip_smoke.py holds the 8 px kernels against these plain versions on
+    such moved rows."""
+    from splatjax_torch.ops.rasterize import (
+        CHUNK, cached_camera, rasterize_cached_fwd_plain, rasterize_fwd_plain,
+    )
+
+    cfg, b, _, _, rows = _dense_case(8, kind)
+    cam = _t_cam(80, 64, DENSE_EYE)
+    camera = cached_camera(cam.modelview, cam.projection, 80, 64)
+
+    def run(moved, starts, ends):
+        if kind == "cached":
+            return rasterize_cached_fwd_plain(moved, camera, starts, ends,
+                                              cfg, 0.999, 0.0)
+        return rasterize_fwd_plain(moved, starts, ends, cfg, 0.999, 0.0,
+                                   packed16=kind == "fwd16")
+
+    want = run(rows, b.starts, b.ends)[:, [0, 1, 2, 3, 5]]
+    for s in SHIFTS:
+        moved = torch.cat([rows.new_zeros((s,) + rows.shape[1:]), rows])
+        starts, ends = b.starts + s, b.ends + s
+        out = run(moved, starts, ends)
+        assert float((out[:, [0, 1, 2, 3, 5]] - want).abs().max()) <= TOL
+        astart = starts.long() // CHUNK * CHUNK
+        n_chunks = (ends.long() - astart + CHUNK - 1) // CHUNK
+        assert torch.equal(out[:, 4, 0].long(), n_chunks)
 
 
 SUB = 16   # the pixel edge of a cluster block's sub-block at 32 and 64 px
