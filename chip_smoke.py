@@ -126,11 +126,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         tiles against their plain versions on every tile of the 192x128 gate
         scene and on the full-width frame (as phases 3, 4 and 8; chunks_done
         one value over every pixel of every tile of the full frame, for K2
-        and K3 at every edge); at 8 px K2 (both widths) and K3 again on the
+        and K3 at every edge); at 8 px K2 (both widths), K3 and K4 (both
+        widths) again on the
         gate scene with the instance rows moved 0, 1, 63, 64, 65 and 127
         rows on in their buffer, which moves the global chunk grid under
         the tiles (``check_shifted_chunks``); the parity and gradient gates
-        at each edge, the tail diagnostics at 8, 32 and 64 px; then,
+        at each edge, the tail diagnostics at 8, 32 and 64 px (at 8 px K4
+        also on the frame without its deepest 1% of tiles); then,
         counted: a one-rank
         ``render_sharded(tile_size=32)`` within 1e-4 of ``render()``, and
         at 8, 16, 32 and 64 px 10 serving frames through
@@ -632,12 +634,19 @@ def check_shifted_chunks(gate_scene, gate_cam, tile):
     so each s moves the chunk grid under the tiles; chunks whose live rows
     lie all past row 64, all before it, or are one row must each occur
     (``chunk_kinds``, counted over the shifts and printed). chunks_done
-    must be one value a tile at every s. Returns the largest
-    error of each kernel's counter."""
+    must be one value a tile at every s. Then K4 (both row widths, an
+    8-channel cotangent) on the kernel's forward output on the same moved
+    rows, against its plain version at K4_TOL: the 8 px K4 walks and adds
+    a chunk's back half (rows 64-127) before its front half, so the same
+    kinds of chunk give it an empty front half, an empty back half and a
+    single row. Returns the largest error of each kernel's counter."""
     import torch
     from splatjax_torch.ops.rasterize import (
         rasterize_cached_fwd, rasterize_cached_fwd_plain, rasterize_fwd,
         rasterize_fwd_plain,
+    )
+    from splatjax_torch.ops.rasterize_vjp import (
+        rasterize_bwd, rasterize_bwd_plain,
     )
 
     def k2_case(packed16):
@@ -686,6 +695,37 @@ def check_shifted_chunks(gate_scene, gate_cam, tile):
                 err[name] = max(err[name], compare_k2(
                     out_k, out_p, label, kernel=kernel, tol=tol))
                 check_chunks_uniform(out_k, label, kernel=kernel)
+    if tile != 8:
+        return err
+    err["rasterize_bwd"] = 0.0
+    for packed16 in (False, True):
+        cfg, b, rows = binned_rows(gate_scene, gate_cam, 1 << 16, 1e-4,
+                                   packed16, tile)
+        what = f"{16 if packed16 else 32}-byte rows"
+        kinds = [sum(n) for n in zip(*(chunk_kinds(b.starts + s, b.ends + s)
+                                       for s in SHIFTS))]
+        log(f"[k4] {what}{at_tile(tile)}, rows moved "
+            f"{', '.join(map(str, SHIFTS))} on: (tile, chunk)s whose live "
+            f"rows lie all past row 64 {kinds[0]}, all before it "
+            f"{kinds[1]}, one row {kinds[2]}")
+        if min(kinds) == 0:
+            raise AssertionError(f"K4 ({what}): the row shifts miss a kind "
+                                 f"of chunk: {kinds}")
+        g = torch.Generator(device=rows.device).manual_seed(0)
+        g_out = torch.randn((cfg.num_tiles, 8, cfg.pixels_per_tile),
+                            generator=g, device=rows.device)
+        for s in SHIFTS:
+            moved = torch.cat([rows.new_zeros((s,) + rows.shape[1:]), rows])
+            starts, ends = b.starts + s, b.ends + s
+            for clip, es in ((0.999, 1e-4), (None, 0.0)):
+                out = rasterize_fwd(moved, starts, ends, cfg, clip, es, None,
+                                    packed16)
+                args = (moved, starts, ends, out, g_out, cfg, clip)
+                err["rasterize_bwd"] = max(err["rasterize_bwd"], compare_k4(
+                    rasterize_bwd(*args, packed16=packed16),
+                    rasterize_bwd_plain(*args, packed16=packed16), packed16,
+                    f"{what}, rows moved {s} on, all {cfg.num_tiles} tiles, "
+                    f"clip={clip} early_stop={es}" + at_tile(tile)))
     return err
 
 
@@ -944,16 +984,45 @@ def check_k4_full(scene, cam, capacity, packed16, tile=16):
                 bound_by=b_by), b, g_k
 
 
+def k4_tail_cases(rows16, b, cfg, walked):
+    """K4's arguments (16-byte rows, as in training, a seeded 4-channel
+    cotangent) for the ``[tail]`` lines, by name: ``alone``, the deepest
+    tile by ``walked`` (instances per tile) alone, every other tile given
+    ends = starts; at 8 px ``bulk``, the frame with its deepest 1% of
+    tiles emptied so; ``frame``, the whole frame. Each takes the forward's
+    output on its bounds."""
+    import torch
+    from splatjax_torch.ops.rasterize import rasterize_fwd
+
+    g = torch.Generator(device=rows16.device).manual_seed(0)
+    g_out = torch.randn((cfg.num_tiles, 4, cfg.pixels_per_tile),
+                        generator=g, device=rows16.device)
+    deep = int(walked.argmax())
+    bounds = {"alone": b.starts.clone()}
+    bounds["alone"][deep] = b.ends[deep]
+    if cfg.tile_w == 8:
+        top = walked.topk(-(-cfg.num_tiles // 100)).indices
+        bounds["bulk"] = b.ends.clone()
+        bounds["bulk"][top] = b.starts[top]
+    bounds["frame"] = b.ends
+    return {name: (rows16, b.starts, ends,
+                   rasterize_fwd(rows16, b.starts, ends, cfg, 0.999, 1e-4,
+                                 packed16=True), g_out, cfg, 0.999)
+            for name, ends in bounds.items()}
+
+
 def tail_diagnostics(scene, cam, capacity, tile=16):
     """How the full-width frame's work spreads over its tiles at tile edge
     ``tile``, and whether the rasterizers are tail-bound: the
     walked-instance distribution per tile; K2 (32-byte rows), K3 (at the
     bins' camera) and K4 (16-byte rows, as in training) on the deepest tile
     alone (every other tile given ends = starts; K4 takes the forward's
-    output on those bounds) beside the whole frame; and K4 with its tiles
-    ordered by walked instances (each tile's end cut to its walked end,
-    past which K4 never reads, so the wrapper's order by list length
-    becomes the order by walked instances) against the bins' order."""
+    output on those bounds) beside the whole frame, and at 8 px K4 on the
+    frame without its deepest 1% of tiles (``k4_tail_cases``); and K4 with
+    its tiles ordered by walked instances (each tile's end cut to its
+    walked end, past which K4 never reads, so the wrapper's order by list
+    length becomes the order by walked instances) against the bins'
+    order."""
     import torch
     from splatjax_torch.ops.binning import features_from_projection
     from splatjax_torch.ops.rasterize import (
@@ -977,9 +1046,7 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
         "tile index)")
     alone = b.starts.clone()
     alone[deep] = b.ends[deep]
-    g = torch.Generator(device=rows.device).manual_seed(0)
-    g_out = torch.randn((cfg.num_tiles, 4, cfg.pixels_per_tile),
-                        generator=g, device=rows.device)
+    k4 = k4_tail_cases(rows16, b, cfg, walked)
     cb = cached_bins(scene, cam, capacity, tile)
     prm, camera, starts3 = k3_args(cb, cam, None, None, tile)[:3]
     alone3 = starts3.clone()
@@ -994,11 +1061,9 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
             lambda: rasterize_cached_fwd(prm, camera, starts3, ends3, cfg,
                                          **fwd), 10,
             ("rasterize_cached", "splat_rasterize_cached_fwd"))
-        saved = rasterize_fwd(rows16, b.starts, ends, cfg, packed16=True,
-                              **fwd)
+    for name, args in k4.items():
         out["k4", name] = kernel_ms(
-            lambda: rasterize_bwd(rows16, b.starts, ends, saved, g_out, cfg,
-                                  0.999, packed16=True), 10,
+            lambda: rasterize_bwd(*args, packed16=True), 10,
             ("rasterize_bwd", "splat_rasterize_bwd"))
     for k, what in (("k2", "K2 32-byte"), ("k3", "K3 at the bins' camera"),
                     ("k4", "K4 16-byte")):
@@ -1006,12 +1071,21 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
         log(f"[tail] {what}{at_tile(tile)}: deepest tile alone {a_ms:.4f} "
             f"ms ({a_tr}), "
             f"whole frame {f_ms:.4f} ms ({f_tr}; {a_ms / f_ms:.3f} of it)")
+    if "bulk" in k4:
+        bulk_ms, bulk_tr = out["k4", "bulk"]
+        n_top = -(-cfg.num_tiles // 100)
+        log(f"[tail] K4 16-byte{at_tile(tile)}: the frame without its "
+            f"deepest 1% of tiles ({n_top} emptied, "
+            f"{int(walked.topk(n_top).values.sum())} walked instances) "
+            f"{bulk_ms:.4f} ms ({bulk_tr}), the deepest tile alone "
+            f"{out['k4', 'alone'][0]:.4f}, the whole frame "
+            f"{out['k4', 'frame'][0]:.4f}")
 
-    walked16 = walked_per_tile(b, saved)
+    args = k4["frame"][3:]  # the forward's output, cotangent, cfg, clip
+    walked16 = walked_per_tile(b, args[0])
     walked_ends = (b.starts.long() + walked16).to(torch.int32)
     if tile > 16:
         k4_balance(rows16, b, cfg, walked_ends)
-    args = (saved, g_out, cfg, 0.999)
     by_len = rasterize_bwd(rows16, b.starts, b.ends, *args, packed16=True)
     by_walked = rasterize_bwd(rows16, b.starts, walked_ends, *args,
                               packed16=True)

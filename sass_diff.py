@@ -14,7 +14,8 @@ a variant's under ``build/cluster_variants/<variant>/csrc``) for
 other tree it prints its instruction count and the kernels of this tree
 whose instructions are the same, ignoring addresses and encodings; where
 none is, the count of differing instructions against this tree's
-instantiation of the same kernel, tile edge and row width. Needs ``nvcc`` and
+instantiation of the same kernel, tile edge and row width, and the first
+SHOWN pairs that differ. Needs ``nvcc`` and
 ``cuobjdump`` (CUDA_HOME or /usr/local/cuda), no card.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("splatjax_torch", "csrc")
 SOURCES = ("rasterize_fwd.cu", "rasterize_cached.cu", "rasterize_bwd.cu")
+SHOWN = 4  # differing instructions printed an instantiation
 
 
 def disassemble(source: str, workdir: str) -> dict[str, list[str]]:
@@ -56,10 +58,12 @@ def disassemble(source: str, workdir: str) -> dict[str, list[str]]:
 
 
 def kernel_key(name: str) -> tuple[str, int, bool]:
-    """(kernel function, its tile edge, its PACKED16 argument) of a
-    mangled name."""
-    return (re.search(r"([a-z_]+_kernel)", name).group(1),
-            int(re.search(r"ILi(\d+)E", name).group(1)), "Lb1E" in name)
+    """(kernel function, its tile edge or 0 where it takes none, its
+    PACKED16 argument) of a mangled name."""
+    edge = re.search(r"ILi(\d+)E", name)
+    return (re.search(r"(rasterize_[a-z]+\d*(?:_[a-z]+)*_kernel)",
+                      name).group(1),
+            int(edge.group(1)) if edge else 0, "Lb1E" in name)
 
 
 def compare(other: str, source: str,
@@ -73,10 +77,12 @@ def compare(other: str, source: str,
               f"{len(same)} identical here")
         for n, b in ours.items():
             if not same and kernel_key(n) == kernel_key(name):
-                differ = sum(x != y for x, y in zip(body, b)) + abs(
-                    len(body) - len(b))
+                pairs = [(x, y) for x, y in zip(body, b) if x != y]
+                differ = len(pairs) + abs(len(body) - len(b))
                 print(f"  the same instantiation here: {len(b)} "
                       f"instructions, {differ} differ position by position")
+                for x, y in pairs[:SHOWN]:
+                    print(f"    theirs: {x}\n    here:   {y}")
 
 
 def main(argv: list[str]) -> int:

@@ -34,7 +34,8 @@
 //   latency-bound walk then runs on 4 or 2 warps instead of 8; a single
 //   block of 256 threads with 4 or 16 pixels a thread at 32 and 64 px
 //   spilled its per-pixel arrays and took 4.3x and 28x the 16 px kernel.
-//   An 8 px tile runs 64 threads, one pixel each;
+//   An 8 px tile runs 64 threads, one pixel each, and holds its warps'
+//   partials (below) half a chunk at a time;
 // * it walks exactly the chunks the forward walked: chunks_done (row 4 of
 //   the saved output) from astart = start / 128 * 128, last chunk first;
 //   the first 128 threads decode one of the chunk's rows each (at 8 px
@@ -92,6 +93,16 @@ struct Backward {
   static constexpr int THREADS = P < 256 ? P : 256;
   static constexpr int PIX = P / THREADS;  // pixels a thread, in a column
   static constexpr int NWARPS = THREADS / 32;
+  // The chunk's rows whose warps' partials a block holds at once: at 8 px
+  // half the chunk, its back half walked and added before its front half
+  // (12 KB of shared memory a block, not 17: 17 blocks an SM, not 12).
+  static constexpr int HALVES = TILE == 8 ? 2 : 1;
+  static constexpr int SPAN = CHUNK / HALVES;
+  // Whether the chain rule takes the fast exp (__expf) for alpha and T and
+  // divides by 1 - alpha through an approximate reciprocal (__fdividef, 2
+  // ulp) instead of the IEEE division and its slow-path check: at 8 px,
+  // where each fragment's instructions bound the kernel.
+  static constexpr bool FAST_MATH = TILE == 8;
   static_assert((TILE == 8 || TILE == 16) && P % THREADS == 0,
                 "tile edge 8 or 16: wider tiles run BackwardCluster");
   static_assert(THREADS % CHUNK == 0 || CHUNK % THREADS == 0,
@@ -219,9 +230,10 @@ __device__ __forceinline__ void store_grad_row(const float (&sum)[NSUM],
   }
 }
 
-// The 10 sums of chunk row r over the NWARPS warps' partials, in warp order.
-template <int NWARPS>
-__device__ __forceinline__ void fold_warps(const float (*s_part)[CHUNK][NSUM],
+// The 10 sums of partials row r over the NWARPS warps' partials, in warp
+// order.
+template <int NWARPS, int ROWS>
+__device__ __forceinline__ void fold_warps(const float (*s_part)[ROWS][NSUM],
                                            int r, float (&sum)[NSUM]) {
 #pragma unroll
   for (int k = 0; k < NSUM; ++k) {
@@ -240,7 +252,7 @@ __device__ __forceinline__ void write_grad_row(
     const float4* s_cut, const float2* s_aux, int base, int r,
     void* __restrict__ grad) {
   float sum[NSUM];
-  fold_warps<NWARPS>(s_part, r, sum);
+  fold_warps<NWARPS, CHUNK>(s_part, r, sum);
   store_grad_row<PACKED16>(sum, s_pow, s_cut, s_aux, base, r, grad);
 }
 
@@ -263,7 +275,8 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
   __shared__ float4 s_cut[CHUNK];  // c4, c5, log-alpha threshold, depth
   __shared__ float4 s_col[CHUNK];  // r, g, b, mean x - tile centre x
   __shared__ float2 s_aux[CHUNK];  // mean y - tile centre y, opacity
-  __shared__ float s_part[NWARPS][CHUNK][NSUM];  // 48128 B in all, 8 warps
+  // the warps' partials: 48128 B in all at 16 px, 12288 B at 8 px
+  __shared__ float s_part[NWARPS][G::SPAN][NSUM];
 
   const int t = order[blockIdx.x];
   const int tid = threadIdx.x;
@@ -325,67 +338,80 @@ rasterize_bwd_kernel(const int4* __restrict__ rows,
     }
     __syncthreads();
 
-    for (int i = hi - 1; i >= lo; --i) {
-      const float4 ct = s_cut[i];
-      float power[PIX];
-      bool hit[PIX];
-      const bool any = eval_power<EXACT>(s_pow[i], ct, x, xx, y, xy, yy, zb,
-                                         power, hit);
-      float v[NSUM];
+    // the rows [h_lo, h_hi) whose partials fit at once: the chunk's back
+    // half, then its front half, at 8 px; the chunk at 16 px
+    for (int h = G::HALVES - 1; h >= 0; --h) {
+      const int hb = h * G::SPAN;
+      const int h_lo = G::HALVES == 1 ? lo : max(lo, hb);
+      const int h_hi = G::HALVES == 1 ? hi : min(hi, hb + G::SPAN);
+      if (G::HALVES > 1 && h_lo >= h_hi) continue;  // an empty half
+      for (int i = h_hi - 1; i >= h_lo; --i) {
+        const float4 ct = s_cut[i];
+        float power[PIX];
+        bool hit[PIX];
+        const bool any = eval_power<EXACT>(s_pow[i], ct, x, xx, y, xy, yy,
+                                           zb, power, hit);
+        float v[NSUM];
 #pragma unroll
-      for (int k = 0; k < NSUM; ++k) v[k] = 0.0f;
-      if (any) {
-        const float4 col = s_col[i];
-        const float myl = s_aux[i].x;
+        for (int k = 0; k < NSUM; ++k) v[k] = 0.0f;
+        if (any) {
+          const float4 col = s_col[i];
+          const float myl = s_aux[i].x;
 #pragma unroll
-        for (int j = 0; j < PIX; ++j) {
-          if (!hit[j]) continue;
-          const float pe = has_clip ? fminf(power[j], log_clip) : power[j];
-          const float alpha = expf(pe);
-          float s = log1pf(-alpha);
-          if (clamp_log_om) s = fmaxf(s, LOG_OM_MIN);
-          const float lt_k = lt_after[j] - s;  // log T in front of i
-          const float tk = expf(lt_k);
-          const float gdotc =
-              gr[j] * col.x + gg[j] * col.y + gb[j] * col.z + gd[j] * ct.w;
-          const float tg = tk * gdotc;
-          float om = 1.0f - alpha;
-          if (om_floor) om = om > 1e-6f ? om : 1e-6f;
-          float g_alpha = tg - (S[j] + gtt[j]) / om;
-          if (has_clip && !(power[j] < log_clip)) g_alpha = 0.0f;
-          const float g_pow = g_alpha * alpha;
-          const float w = alpha * tk;
-          S[j] += alpha * tg;
-          lt_after[j] = lt_k;
-          const float dx = x - col.w, dy = y[j] - myl;
-          v[0] += g_pow;
-          v[1] += g_pow * dx;
-          v[2] += g_pow * dy;
-          v[3] += g_pow * dx * dx;
-          v[4] += g_pow * dx * dy;
-          v[5] += g_pow * dy * dy;
-          v[6] += w * gr[j];
-          v[7] += w * gg[j];
-          v[8] += w * gb[j];
-          v[9] += w * gd[j];
+          for (int j = 0; j < PIX; ++j) {
+            if (!hit[j]) continue;
+            const float pe = has_clip ? fminf(power[j], log_clip) : power[j];
+            const float alpha = G::FAST_MATH ? __expf(pe) : expf(pe);
+            float s = log1pf(-alpha);
+            if (clamp_log_om) s = fmaxf(s, LOG_OM_MIN);
+            const float lt_k = lt_after[j] - s;  // log T in front of i
+            const float tk = G::FAST_MATH ? __expf(lt_k) : expf(lt_k);
+            const float gdotc =
+                gr[j] * col.x + gg[j] * col.y + gb[j] * col.z + gd[j] * ct.w;
+            const float tg = tk * gdotc;
+            float om = 1.0f - alpha;
+            if (om_floor) om = om > 1e-6f ? om : 1e-6f;
+            const float behind = S[j] + gtt[j];
+            float g_alpha = tg - (G::FAST_MATH ? __fdividef(behind, om)
+                                               : behind / om);
+            if (has_clip && !(power[j] < log_clip)) g_alpha = 0.0f;
+            const float g_pow = g_alpha * alpha;
+            const float w = alpha * tk;
+            S[j] += alpha * tg;
+            lt_after[j] = lt_k;
+            const float dx = x - col.w, dy = y[j] - myl;
+            v[0] += g_pow;
+            v[1] += g_pow * dx;
+            v[2] += g_pow * dy;
+            v[3] += g_pow * dx * dx;
+            v[4] += g_pow * dx * dy;
+            v[5] += g_pow * dy * dy;
+            v[6] += w * gr[j];
+            v[7] += w * gg[j];
+            v[8] += w * gb[j];
+            v[9] += w * gd[j];
+          }
         }
+        const float sum =
+            __any_sync(FULL, any) ? warp_reduce_scatter(v, lane) : 0.0f;
+        if (part != nullptr) part[(i - hb) * NSUM] = sum;
       }
-      const float sum =
-          __any_sync(FULL, any) ? warp_reduce_scatter(v, lane) : 0.0f;
-      if (part != nullptr) part[i * NSUM] = sum;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    if constexpr (THREADS >= CHUNK) {
-      if (tid >= lo && tid < hi) {
-        write_grad_row<PACKED16, NWARPS>(s_part, s_pow, s_cut, s_aux, base,
-                                         tid, grad);
-      }
-    } else {
-      for (int r = tid; r < CHUNK; r += THREADS) {
-        if (r >= lo && r < hi) {
+      if constexpr (G::HALVES > 1) {  // thread r adds the half's row hb + r
+        static_assert(THREADS == G::SPAN, "one thread a row of the half");
+        if (hb + tid >= h_lo && hb + tid < h_hi) {
+          float sum[NSUM];
+          fold_warps<NWARPS, G::SPAN>(s_part, tid, sum);
+          store_grad_row<PACKED16>(sum, s_pow, s_cut, s_aux, base, hb + tid,
+                                   grad);
+        }
+        __syncthreads();  // the half's partials read before the next half's
+      } else {
+        static_assert(THREADS >= CHUNK, "thread r adds chunk row r");
+        if (tid >= lo && tid < hi) {
           write_grad_row<PACKED16, NWARPS>(s_part, s_pow, s_cut, s_aux, base,
-                                           r, grad);
+                                           tid, grad);
         }
       }
     }
@@ -602,7 +628,7 @@ rasterize_bwd_cluster_kernel(const int4* __restrict__ rows,
     // a reached row's block partial to its owner
     if (tid < CHUNK && ((s_reach[warp] >> lane) & 1u)) {
       float sum[NSUM];
-      fold_warps<G::NWARPS>(s_part, tid, sum);
+      fold_warps<G::NWARPS, CHUNK>(s_part, tid, sum);
       float4* dst = cluster.map_shared_rank(
           &s_slot[(tid % OWNED) * C + rank][0],
           (unsigned)(tid / OWNED));

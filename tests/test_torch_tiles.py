@@ -21,7 +21,10 @@ support rectangle that lets a sub-block skip an instance holding every
 fragment that passes the cutoff, on scene rows and on random conics
 (hypothesis), also at 8 px, where cluster_variants.py's warp skip relies
 on it; and at 8 px, with no early stop, a result that does not depend on
-where the chunk grid falls.
+where the chunk grid falls. A plain-torch model of the split walk of 8 px
+tiles that cluster_variants.py times as a variant of K4 (a chunk's rows cut
+into segments joined by a pre-pass of log-transmittance and suffix sums),
+against the plain K4 on moved rows and on a stack whose T underflows f32.
 """
 import dataclasses
 import importlib
@@ -455,6 +458,238 @@ def test_plain_8px_does_not_depend_on_the_chunk_grid(kind):
 
 SUB = 16   # the pixel edge of a cluster block's sub-block at 32 and 64 px
 K4_TOL = 1e-4  # chip_smoke.py's K4_TOL: x each gradient channel's max
+K4_TOL_DEEP = 1e-3  # chip_smoke.py's K4_TOL_FULL, for deep stacks
+K4_MIN_ROWS = 16  # cluster_variants.py's Backward8Split::MIN_ROWS
+
+
+def _segments(lo, hi, groups):
+    """The segments that the split walk of 8 px tiles (cluster_variants.py's
+    split8_k4 variant of K4, ``Backward8Split``) cuts a chunk's live rows
+    [lo, hi) into, per (tile) entry of ``lo`` and ``hi``: their number, at
+    most ``groups``, with at least K4_MIN_ROWS rows each (one where the
+    chunk has no more), and each row's segment, 0 the back-most, over the
+    chunk's CHUNK rows."""
+    from splatjax_torch.ops.rasterize import CHUNK
+
+    n = hi - lo
+    nseg = torch.where(n > K4_MIN_ROWS,
+                       (n // K4_MIN_ROWS).clamp_max(groups),
+                       torch.ones_like(n))
+    lane = torch.arange(CHUNK)
+    seg = sum((lane[None] < (hi - n * g // nseg)[:, None]).long()
+              for g in range(1, groups))
+    return nseg, seg
+
+
+def _segmented_bwd(rows, starts, ends, out_saved, g_out, cfg, alpha_clip,
+                   groups, packed16):
+    """A plain-torch model of the split walk of 8 px tiles
+    (cluster_variants.py's split8_k4 variant of K4, ``Backward8Split``),
+    vectorised over tiles, pixels and a chunk's rows:
+    per chunk, its live rows cut into ``_segments``; each segment's
+    per-pixel pre-pass, L = its sum of s = log(1 - alpha) and U = its sum
+    of alpha exp(l) (g . c), l the sum of s in front of the row within the
+    segment; each segment's start state from the chunk's back-edge (log T,
+    S) and the (L, U) of the segments behind it, in order; each segment
+    walked back to front from its start state (suffix sums where the
+    kernel walks row by row); the next chunk's state by the same sums over
+    every segment, or a one-segment chunk's own walk. The chain rule and
+    masks are ``rasterize_bwd_plain``'s."""
+    from splatjax_torch.ops.rasterize import (
+        CHUNK, _LOG_OM_MIN, clip_bounds_alpha, decode_rows, fragment_power,
+        log_clip, pixel_coords,
+    )
+    from splatjax_torch.ops.rasterize_vjp import (
+        _om_floor, _pack_grad_bf16, _suffix_cumsum,
+    )
+
+    f32 = torch.float32
+    grad = torch.zeros((rows.shape[0], 16), dtype=f32)
+    x, y = pixel_coords(cfg, "cpu")
+    basis = (x, y, x * x, x * y, y * y)
+    lc = log_clip(alpha_clip)
+    clamp = not clip_bounds_alpha(alpha_clip)
+    lane = torch.arange(CHUNK)
+    st, en = starts.long(), ends.long()
+    astart = st // CHUNK * CHUNK
+    c_done = out_saved[:, 4, 0].long()
+    tb = torch.arange(cfg.num_tiles)
+    ox = ((tb % cfg.tiles_x) * cfg.tile_w).to(f32) + 0.5 * cfg.tile_w
+    oy = ((tb // cfg.tiles_x) * cfg.tile_h).to(f32) + 0.5 * cfg.tile_h
+    g_d = g_out[:, 5] if g_out.shape[1] > 4 else torch.zeros_like(g_out[:, 0])
+    cot = torch.stack([g_out[:, 0], g_out[:, 1], g_out[:, 2], g_d], dim=-1)
+    lt = out_saved[:, 6, :]                                  # (T, P)
+    gtt = g_out[:, 3] * lt.exp()
+    s_carry = torch.zeros_like(lt)
+    for c in range(int(c_done.max()) - 1, -1, -1):
+        active = c < c_done
+        base = astart + c * CHUNK
+        k = base[:, None] + lane[None, :]
+        in_range = (k >= st[:, None]) & (k < en[:, None]) & active[:, None]
+        f = decode_rows(rows[k.clamp(0, rows.shape[0] - 1)], packed16)
+        mxl, myl = f[0] - ox[:, None], f[1] - oy[:, None]
+        col = torch.stack([f[5], f[6], f[7], f[9]], dim=-1)  # (T, C, 4)
+        power, lnopa = fragment_power(mxl, myl, f[2], f[3], f[4], f[8], basis)
+        valid = (power >= (lnopa - 4.0)[:, None, :]) & in_range[:, None, :]
+        p_eff = power if lc is None else power.clamp_max(lc)
+        zero = torch.zeros_like(p_eff)
+        alpha = torch.where(valid, p_eff.exp(), zero)
+        s = torch.log1p(-alpha)
+        if clamp:
+            s = s.clamp_min(_LOG_OM_MIN)
+        gdotc = (cot[:, :, None, :] * col[:, None, :, :]).sum(-1)
+        nseg, seg = _segments((st - base).clamp_min(0),
+                              (en - base).clamp_max(CHUNK), groups)
+        masks = [((seg == g) & in_range)[:, None, :] for g in range(groups)]
+        # the pre-pass and the segments' start states, back to front
+        lt_h, s_h, starts_g = lt, s_carry, []
+        for g, m in enumerate(masks):
+            sg = s * m
+            l_excl = torch.cat([zero[..., :1], sg.cumsum(-1)[..., :-1]], -1)
+            big_u = (alpha * l_excl.exp() * gdotc * m).sum(-1)
+            starts_g.append((lt_h, s_h))
+            on = (g < nseg)[:, None]
+            lt_h = torch.where(on, lt_h - sg.sum(-1), lt_h)
+            s_h = torch.where(on, s_h + lt_h.exp() * big_u, s_h)
+        # each segment back to front from its start state
+        lt_k, s_excl = zero.clone(), zero.clone()
+        for g, m in enumerate(masks):
+            lt_g = starts_g[g][0][:, :, None] - _suffix_cumsum(s * m)
+            u_incl = _suffix_cumsum(alpha * lt_g.exp() * gdotc * m)
+            se = torch.cat([u_incl[..., 1:], zero[..., :1]], dim=-1) \
+                + starts_g[g][1][:, :, None]
+            lt_k = torch.where(m, lt_g, lt_k)
+            s_excl = torch.where(m, se, s_excl)
+            if g == 0:  # a one-segment chunk's end state
+                walk_end = (lt_g[..., 0], s_carry + u_incl[..., 0])
+        t_k = lt_k.exp()
+        tg = t_k * gdotc
+        om = 1.0 - alpha
+        if _om_floor(alpha_clip):
+            om = torch.where(om > 1e-6, om, torch.full_like(om, 1e-6))
+        g_alpha = tg - (s_excl + gtt[:, :, None]) / om
+        if lc is not None:
+            g_alpha = torch.where(power < lc, g_alpha, zero)
+        g_pow = torch.where(valid, g_alpha * alpha, zero)
+        w = alpha * t_k
+        dx = x[None, :, None] - mxl[:, None, :]
+        dy = y[None, :, None] - myl[:, None, :]
+        sdx, sdy = (g_pow * dx).sum(1), (g_pow * dy).sum(1)
+        cw = (w[..., None] * cot[:, :, None, :]).sum(1)       # (T, C, 4)
+        ca, cb, cc, opa = f[2], f[3], f[4], f[8]
+        rows10 = torch.stack(
+            [ca * sdx + cb * sdy, cb * sdx + cc * sdy,
+             -0.5 * (g_pow * dx * dx).sum(1), -(g_pow * dx * dy).sum(1),
+             -0.5 * (g_pow * dy * dy).sum(1), cw[..., 0], cw[..., 1],
+             cw[..., 2], g_pow.sum(1) / torch.where(
+                 opa.abs() > 1e-12, opa, torch.full_like(opa, 1e-12)),
+             cw[..., 3]], dim=-1)
+        grad[k[in_range], :10] = rows10[in_range]
+        one = (nseg == 1)[:, None]
+        act = active[:, None]
+        lt = torch.where(act, torch.where(one, walk_end[0], lt_h), lt)
+        s_carry = torch.where(act, torch.where(one, walk_end[1], s_h),
+                              s_carry)
+    return _pack_grad_bf16(grad) if packed16 else grad
+
+
+def _assert_k4_close(got, want, packed16, tol=K4_TOL):
+    """chip_smoke.py's compare_k4: within ``tol`` of each channel's max
+    |value|, plus one bf16 ulp for packed rows; finite, not all zero."""
+    from splatjax_torch.ops.segreduce import unpack_bf16_pairs
+
+    extra = 0.0
+    if packed16:
+        got, want = unpack_bf16_pairs(got), unpack_bf16_pairs(want)
+        extra = 2.0 ** -7 * want.abs()
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    assert bool(got.isfinite().all()) and float(want.abs().max()) > 0.0
+    assert bool(((got - want).abs() <= tol * scale + extra).all())
+
+
+@pytest.fixture(scope="module")
+def dense8():
+    return {kind: _dense_case(8, kind) for kind in ("fwd32", "fwd16")}
+
+
+@pytest.mark.parametrize("packed16", (False, True))
+@pytest.mark.parametrize("groups", (1, 2, 4))
+def test_k4_8px_segmented_walk_matches_plain(dense8, groups, packed16):
+    """The split walk of 8 px tiles, modelled by ``_segmented_bwd``,
+    within K4_TOL of ``rasterize_bwd_plain`` on the dense scene's rows in
+    place and moved 1-127 rows on (the moves change where the chunk grid
+    falls, so which chunks have one live row, fewer segments than groups
+    or one per group; each kind occurs over the moves)."""
+    from splatjax_torch.ops.rasterize import CHUNK, rasterize_fwd_plain
+    from splatjax_torch.ops.rasterize_vjp import rasterize_bwd_plain
+
+    cfg, b, _, _, rows = dense8["fwd16" if packed16 else "fwd32"]
+    g_out = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (cfg.num_tiles, 8, cfg.pixels_per_tile)).astype(np.float32))
+    kinds = set()
+    for s in (0,) + SHIFTS:
+        moved = torch.cat([rows.new_zeros((s,) + rows.shape[1:]), rows])
+        starts, ends = b.starts + s, b.ends + s
+        out = rasterize_fwd_plain(moved, starts, ends, cfg, 0.999, 0.02,
+                                  packed16=packed16)
+        _assert_k4_close(
+            _segmented_bwd(moved, starts, ends, out, g_out, cfg, 0.999,
+                           groups, packed16),
+            rasterize_bwd_plain(moved, starts, ends, out, g_out, cfg, 0.999,
+                                packed16=packed16), packed16)
+        astart = starts.long() // CHUNK * CHUNK
+        for c in range(int(out[:, 4, 0].max())):
+            base = astart + c * CHUNK
+            on = c < out[:, 4, 0].long()
+            lo = (starts.long() - base).clamp_min(0)[on]
+            hi = (ends.long() - base).clamp_max(CHUNK)[on]
+            nseg = _segments(lo, hi, groups)[0]
+            kinds |= {"one row"} if bool((hi - lo == 1).any()) else set()
+            kinds |= {int(v) for v in nseg.unique()}
+    assert kinds >= {"one row", *range(1, groups + 1)}
+
+
+@pytest.mark.parametrize("packed16", (False, True))
+def test_k4_8px_segmented_walk_past_t_underflow(packed16):
+    """A stack of 600 instances over one 8 px tile whose log T falls below
+    -100 at every pixel (about -485), so T underflows f32: the split
+    walk's rows, the front instances' among them, are finite, not zero,
+    and within K4_TOL_DEEP of ``rasterize_bwd_plain``. Both recover the
+    front's log T from log T_final by some 600 f32 additions near -485,
+    whose rounding alone moves a front T by a few 1e-4 in either
+    version (the model with one group, the plain walk's order, agrees to
+    4e-7); chip_smoke.py holds the full frame's deep stacks to the same
+    1e-3."""
+    from splatjax_torch.ops.rasterize import pack_table, rasterize_fwd_plain
+    from splatjax_torch.ops.rasterize_vjp import rasterize_bwd_plain
+    from splatjax_torch.ops.segreduce import unpack_bf16_pairs
+
+    rng = np.random.default_rng(17)
+    n = 600
+    feat = np.zeros((n, 16), np.float32)
+    feat[:, 0:2] = 4.0 + rng.uniform(-1.0, 1.0, (n, 2))   # near the centre
+    feat[:, 2] = rng.uniform(0.01, 0.05, n)                # wide conics
+    feat[:, 3] = rng.uniform(-0.005, 0.005, n)
+    feat[:, 4] = rng.uniform(0.01, 0.05, n)
+    feat[:, 5:8] = rng.uniform(0.0, 1.0, (n, 3))
+    feat[:, 8] = rng.uniform(0.6, 0.95, n)
+    feat[:, 9] = np.linspace(1.0, 5.0, n)
+    rows = pack_table(torch.from_numpy(feat), packed16)
+    cfg = TileConfig(8, 8, 8, 8)
+    starts = torch.zeros(1, dtype=torch.int32)
+    ends = torch.full((1,), n, dtype=torch.int32)
+    out = rasterize_fwd_plain(rows, starts, ends, cfg, 0.999, 0.0,
+                              packed16=packed16)
+    assert float(out[0, 6].max()) < -100.0 and int(out[0, 4, 0]) == 5
+    g_out = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (1, 8, cfg.pixels_per_tile)).astype(np.float32))
+    got = _segmented_bwd(rows, starts, ends, out, g_out, cfg, 0.999, 4,
+                         packed16)
+    _assert_k4_close(got, rasterize_bwd_plain(
+        rows, starts, ends, out, g_out, cfg, 0.999, packed16=packed16),
+        packed16, K4_TOL_DEEP)
+    front = unpack_bf16_pairs(got[:64]) if packed16 else got[:64]
+    assert bool((front[:, :10] != 0).any(dim=1).all())
 
 
 @pytest.mark.parametrize("packed16", (False, True))
