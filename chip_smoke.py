@@ -155,7 +155,10 @@ device it prints no result and exits with 1.
 
 Kernel times come from CUDA events around each launch, queued behind a
 device wait (``kernel_ms``); each ``[k*]`` line says how many launches
-were timed. Device busy time and idle share come from torch.profiler.
+were timed. Device busy time and idle share come from torch.profiler, and
+so do the ``[stages]`` and ``[train-stages]`` lines: the device time of
+the kernels launched inside each of the program's spans
+(``splatjax_torch.trace``) over a profiled serving frame and training step.
 """
 from __future__ import annotations
 
@@ -1524,90 +1527,56 @@ def gradient_gate(gate_scene, gate_cam, tile=16, capacity=None):
     return float(err.max()) / scale
 
 
-def stage_times(scene, cam, capacity):
-    """Device time of each stage of one frame (CUDA events between the
-    same calls render() makes)."""
-    import torch
-    from splatjax_torch.ops.binning import (
-        TileConfig, bin_gaussians, features_from_projection,
-    )
-    from splatjax_torch.ops.rasterize import (
-        _rasterize_fwd, gather_rows, pack_feature_table, tiles_to_image,
-    )
+# the [stages] and [train-stages] lines: label -> (the program's span,
+# the spans inside it left out); the last of each is the root's self time
+FRAME_STAGES = {
+    "project": ("sj.project", ()), "bin": ("sj.bin", ()),
+    "pack+gather": ("sj.gather", ()),
+    "rest (features, K2, assemble)": (
+        "sj.frame", ("sj.project", "sj.bin", "sj.gather")),
+}
+ADAM = "Optimizer.step#Adam.step"
+STEP_STAGES = {
+    "project": ("sj.project", ()), "bin": ("sj.bin", ()),
+    "pack16+gather": ("sj.gather", ()), "loss fwd": ("sj.loss", ()),
+    "loss bwd": ("sj.loss_bwd", ()), "K4": ("sj.rasterize_bwd", ()),
+    "gather transpose (slot_pos+K7)": ("sj.gather_bwd", ()),
+    "autograd through projection": (
+        "sj.render_bwd", ("sj.rasterize_bwd", "sj.gather_bwd")),
+    "Adam": (ADAM, ()),
+    "rest (features, K2, assemble, norms)": (
+        "sj.step", ("sj.project", "sj.bin", "sj.gather", "sj.loss",
+                    "sj.loss_bwd", "sj.render_bwd", ADAM)),
+}
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    proj = projected(scene, cam, 1e-4)
-    ev[1].record()
-    cfg = TileConfig(cam.width, cam.height)
-    b = bin_gaussians(proj, cfg, capacity)
-    ev[2].record()
-    rows = gather_rows(pack_feature_table(features_from_projection(proj)),
-                       b.gauss_id)
-    ev[3].record()
-    out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg, 0.999, 1e-4,
-                         None, False)
-    ev[4].record()
-    tiles_to_image(out, cfg)
-    ev[5].record()
+
+def span_stages(fn, stages: dict, calls: int = 5) -> dict:
+    """Device ms per call of each stage, from the program's own spans in
+    one torch.profiler window over ``calls`` calls of ``fn`` after a
+    warm-up call: the kernels launched inside each stage's span, less
+    those launched inside the spans it leaves out. Also the host ms inside
+    the root span (the last stage's) and the device's idle ms within it."""
+    bench = os.path.join(HERE, "h100_bench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    import profiling
+    import spans
+
+    fn()
     sync()
-    names = ("project", "bin", "pack+gather", "rasterize", "assemble")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-
-
-def train_stage_times(params, cam, target, capacity, cfg):
-    """Device time of each stage of one 16-byte training step: the calls
-    the step makes, written out so CUDA events can sit between them."""
-    import torch
-    from splatjax_torch.ops.binning import (
-        TileConfig, bin_gaussians, features_from_projection,
-        segment_sum_by_gid_packed_bf16,
-    )
-    from splatjax_torch.ops.rasterize import (
-        _rasterize_fwd, gather_rows, pack_feature_table16, tiles_to_image,
-    )
-    from splatjax_torch.ops.rasterize_vjp import (
-        _rasterize_bwd, image_cotangent_to_tiles,
-    )
-    from splatjax_torch.train.fit import _optimizer
-    from splatjax_torch.train.loss import combined_loss
-
-    opt = _optimizer(params, cfg)
-    opt.zero_grad(set_to_none=True)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
-    ev[0].record()
-    proj = projected(params.to_scene(), cam, cfg.early_stop)
-    ev[1].record()
-    tc = TileConfig(cam.width, cam.height)
-    with torch.no_grad():
-        b = bin_gaussians(proj, tc, capacity)
-    ev[2].record()
-    feat_n = features_from_projection(proj)
-    rows = gather_rows(pack_feature_table16(feat_n.detach()), b.gauss_id)
-    ev[3].record()
-    out = _rasterize_fwd(rows, b.starts, b.ends, b.order, tc, cfg.alpha_clip,
-                         cfg.early_stop, None, True)
-    ev[4].record()
-    img = tiles_to_image(out, tc).requires_grad_()
-    combined_loss(img, target, ssim_weight=cfg.ssim_weight).backward()
-    ev[5].record()
-    g_rows = _rasterize_bwd(rows, b.starts, b.ends, b.order, out,
-                            image_cotangent_to_tiles(img.grad, tc), tc,
-                            cfg.alpha_clip, None, True)
-    ev[6].record()
-    seg = segment_sum_by_gid_packed_bf16(g_rows, b.gauss_id, b.cum, b.count,
-                                         b.perm, b.cum_d, b.count_d,
-                                         b.overflow, by_tile=b.by_tile)
-    ev[7].record()
-    feat_n.backward(seg)
-    ev[8].record()
-    opt.step()
-    ev[9].record()
-    sync()
-    names = ("project", "bin", "pack16+gather", "K2 forward",
-             "assemble+loss fwd/bwd", "K4", "gather transpose (slot_pos+K7)",
-             "autograd through projection", "Adam")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out = []
+    with profiling.traced(calls, out):
+        for _ in range(calls):
+            fn()
+        sync()
+    t = out[0]
+    ms = {label: (spans.device_s(t, name, leave) or 0.0) * 1e3 / calls
+          for label, (name, leave) in stages.items()}
+    root = list(stages.values())[-1][0]
+    ms["host in " + root] = (spans.host_s(t, root) or 0.0) * 1e3 / calls
+    ms["device idle in " + root] = \
+        (spans.idle_s(t, root) or 0.0) * 1e3 / calls
+    return ms
 
 
 def profile_calls(fn, calls: int = 5, want: str = "", tries: int = 3):
@@ -3203,7 +3172,7 @@ def main() -> int:
     # -- the main paths, counts reset just before each ----------------------
     launches_a, frame_ms, renderer = serving_path(scene, cam, capacity)
     require(launches_a, ("expand", "rasterize_fwd"), "serving")
-    stages = stage_times(scene, cam, capacity)
+    stages = span_stages(lambda: renderer.render(cam), FRAME_STAGES)
     log("[stages] " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
     log(f"[launches] serving: {launches_a} over {FRAMES} frames")
     frame_med = statistics.median(frame_ms)
@@ -3224,14 +3193,16 @@ def main() -> int:
     require(launches_d, ("rasterize_bwd", "segreduce_rows"),
             "32-byte f32-gather step")
 
-    tstages = train_stage_times(params, cam, target, capacity, cfg)
-    log("[train-stages] " + ", ".join(f"{k} {v:.3f} ms"
-                                      for k, v in tstages.items())
-        + f"; sum {sum(tstages.values()):.3f} ms")
     from splatjax_torch.train.fit import _optimizer
 
     opt = _optimizer(params, cfg)
     step = make_train_step([cam], cfg, capacity)
+    tstages = span_stages(
+        lambda: step(params, opt, cam.modelview, cam.projection, target),
+        STEP_STAGES, 3)
+    log("[train-stages] " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in tstages.items())
+        + f"; sum {sum(tstages[k] for k in STEP_STAGES):.3f} ms")
     log_profile("train-profile", *profile_calls(
         lambda: step(params, opt, cam.modelview, cam.projection, target), 3),
         statistics.median(step_ms))

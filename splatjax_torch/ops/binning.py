@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from splatjax_torch import trace
 from splatjax_torch.kernels import DEFAULT_TILE, TILE_EDGES
 from splatjax_torch.ops.expand import expand_instances
 from splatjax_torch.ops.projection import ProjectedGaussians
@@ -363,55 +364,57 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: TileConfig,
     if not 0 < capacity <= CUM_MAX:
         raise ValueError(f"capacity must be in [1, {CUM_MAX}], got "
                          f"{capacity}")
-    n = proj.mean2d.shape[0]
-    dev = proj.mean2d.device
-    i32 = torch.int32
-    if n == 0:  # empty scene: all-sentinel instances
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        return BinnedInstances(
-            gauss_id=torch.zeros((capacity,), dtype=i32, device=dev),
-            tile_id=torch.full((capacity,), cfg.num_tiles, dtype=i32,
-                               device=dev),
-            starts=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
-            ends=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
-            order=torch.arange(cfg.num_tiles, dtype=i32, device=dev),
-            num_instances=zero,
-            overflow=zero,
-            by_tile=torch.arange(capacity, device=dev),
+    with trace.span("sj.bin"):
+        n = proj.mean2d.shape[0]
+        dev = proj.mean2d.device
+        i32 = torch.int32
+        if n == 0:  # empty scene: all-sentinel instances
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            return BinnedInstances(
+                gauss_id=torch.zeros((capacity,), dtype=i32, device=dev),
+                tile_id=torch.full((capacity,), cfg.num_tiles, dtype=i32,
+                                   device=dev),
+                starts=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
+                ends=torch.zeros((cfg.num_tiles,), dtype=i32, device=dev),
+                order=torch.arange(cfg.num_tiles, dtype=i32, device=dev),
+                num_instances=zero,
+                overflow=zero,
+                by_tile=torch.arange(capacity, device=dev),
+            )
+
+        d = depth_order(proj, cfg)
+        tile, gid = expand_instances(
+            d.x0_d, d.y0_d, d.spanw_d, d.cum_d, d.perm,
+            capacity, cfg.tiles_x, cfg.num_tiles,
         )
 
-    d = depth_order(proj, cfg)
-    tile, gid = expand_instances(
-        d.x0_d, d.y0_d, d.spanw_d, d.cum_d, d.perm,
-        capacity, cfg.tiles_x, cfg.num_tiles,
-    )
+        # one stable sort by tile id: depth-major expansion order keeps exact
+        # front-to-back order within each tile; sentinels sort last
+        tile_sorted, by_tile = torch.sort(tile, stable=True)
+        gid_sorted = gid[by_tile]
 
-    # one stable sort by tile id: depth-major expansion order keeps exact
-    # front-to-back order within each tile; sentinels sort last
-    tile_sorted, by_tile = torch.sort(tile, stable=True)
-    gid_sorted = gid[by_tile]
+        # tile t's instances start at the first sorted id >= t; a search (not
+        # a bincount) needs no host sync to size its output
+        bounds = torch.searchsorted(
+            tile_sorted,
+            torch.arange(cfg.num_tiles + 1, dtype=i32, device=dev),
+            out_int32=True,
+        )
 
-    # tile t's instances start at the first sorted id >= t; a search (not
-    # a bincount) needs no host sync to size its output
-    bounds = torch.searchsorted(
-        tile_sorted,
-        torch.arange(cfg.num_tiles + 1, dtype=i32, device=dev),
-        out_int32=True,
-    )
-
-    starts, ends = bounds[:-1], bounds[1:]
-    return BinnedInstances(
-        gauss_id=gid_sorted,
-        tile_id=tile_sorted,
-        starts=starts,
-        ends=ends,
-        order=tile_order(ends - starts),
-        num_instances=d.total,
-        overflow=torch.clamp_min(d.total - capacity, 0),
-        cum=d.cum,
-        count=d.count,
-        perm=d.perm,
-        cum_d=d.cum_d,
-        count_d=d.count_d,
-        by_tile=by_tile,
-    )
+        starts, ends = bounds[:-1], bounds[1:]
+        trace.count(instances=d.total)
+        return BinnedInstances(
+            gauss_id=gid_sorted,
+            tile_id=tile_sorted,
+            starts=starts,
+            ends=ends,
+            order=tile_order(ends - starts),
+            num_instances=d.total,
+            overflow=torch.clamp_min(d.total - capacity, 0),
+            cum=d.cum,
+            count=d.count,
+            perm=d.perm,
+            cum_d=d.cum_d,
+            count_d=d.count_d,
+            by_tile=by_tile,
+        )

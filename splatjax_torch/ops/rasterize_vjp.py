@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from splatjax_torch import kernels
+from splatjax_torch import kernels, trace
 from splatjax_torch.ops.binning import (
     FEAT_DIM,
     BinnedInstances,
@@ -125,34 +125,40 @@ def _rasterize_bwd(rows, starts, ends, order: Optional[torch.Tensor],
     """:func:`rasterize_bwd` with the kernel's block order: the
     ``BinnedInstances.order`` that binning built with these bounds (the
     library's own, so not checked), or None to build it here."""
-    dev = _check_bwd_inputs(rows, starts, ends, out_saved, g_out, zbuf, cfg)
-    if dev.type == "cpu":
-        return rasterize_bwd_plain(rows, starts, ends, out_saved, g_out, cfg,
-                                   alpha_clip, zbuf, packed16=packed16)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    k = rows.shape[0]
-    grad = (torch.zeros((k, PACKED_PLANES), dtype=torch.int32, device=dev)
-            if packed16 else
-            torch.zeros((k, FEAT_DIM), dtype=torch.float32, device=dev))
-    if order is None:
-        order = tile_order(ends - starts)
-    lc = log_clip(alpha_clip)
-    fn = kernels.function("rasterize_bwd", "splat_rasterize_bwd", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(
-            rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-            order.data_ptr(), out_saved.data_ptr(), g_out.data_ptr(),
-            g_out.shape[1],
-            None if zbuf is None else zbuf.data_ptr(), grad.data_ptr(),
-            cfg.num_tiles, cfg.tiles_x, cfg.tile_w, int(lc is not None),
-            0.0 if lc is None else lc,
-            int(not clip_bounds_alpha(alpha_clip)), int(_om_floor(alpha_clip)),
-            int(packed16), kernels.stream_of(dev),
-        )
-    kernels.check_launch(kernels.tiled_counter("rasterize_bwd", cfg.tile_w),
-                         err)
-    return grad
+    with trace.span("sj.rasterize_bwd"):
+        dev = _check_bwd_inputs(rows, starts, ends, out_saved, g_out, zbuf,
+                                cfg)
+        if dev.type == "cpu":
+            return rasterize_bwd_plain(rows, starts, ends, out_saved, g_out,
+                                       cfg, alpha_clip, zbuf,
+                                       packed16=packed16)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        k = rows.shape[0]
+        grad = (torch.zeros((k, PACKED_PLANES), dtype=torch.int32,
+                            device=dev)
+                if packed16 else
+                torch.zeros((k, FEAT_DIM), dtype=torch.float32, device=dev))
+        if order is None:
+            order = tile_order(ends - starts)
+        lc = log_clip(alpha_clip)
+        fn = kernels.function("rasterize_bwd", "splat_rasterize_bwd",
+                              _ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(
+                rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                order.data_ptr(), out_saved.data_ptr(), g_out.data_ptr(),
+                g_out.shape[1],
+                None if zbuf is None else zbuf.data_ptr(), grad.data_ptr(),
+                cfg.num_tiles, cfg.tiles_x, cfg.tile_w, int(lc is not None),
+                0.0 if lc is None else lc,
+                int(not clip_bounds_alpha(alpha_clip)),
+                int(_om_floor(alpha_clip)), int(packed16),
+                kernels.stream_of(dev),
+            )
+        kernels.check_launch(
+            kernels.tiled_counter("rasterize_bwd", cfg.tile_w), err)
+        return grad
 
 
 def _suffix_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -289,14 +295,17 @@ def _grad_rows_to_gaussians(g_rows, b: BinnedInstances):
     (N, 16)."""
     res = (b.gauss_id, b.cum, b.count, b.perm, b.cum_d, b.count_d,
            b.overflow)
-    if g_rows.dtype == torch.int32:
-        return segment_sum_by_gid_packed_bf16(g_rows, *res,
-                                              by_tile=b.by_tile)
-    return segment_sum_by_gid(g_rows, *res, by_tile=b.by_tile)
+    with trace.span("sj.gather_bwd"):
+        if g_rows.dtype == torch.int32:
+            return segment_sum_by_gid_packed_bf16(g_rows, *res,
+                                                  by_tile=b.by_tile)
+        return segment_sum_by_gid(g_rows, *res, by_tile=b.by_tile)
 
 
 def _gathered_rows(feat_n, gid, packed16):
-    return gather_rows(pack_table(feat_n.detach(), packed16), gid)
+    with trace.span("sj.gather"):
+        trace.count(rows=gid.shape[0])
+        return gather_rows(pack_table(feat_n.detach(), packed16), gid)
 
 
 class _RasterizeTiles(torch.autograd.Function):

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from splatjax_torch import trace
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import matmul_f32
 from splatjax_torch.ops.binning import (
@@ -113,16 +114,17 @@ def _cov6(scene: GaussianScene, viewer_exact: bool) -> torch.Tensor:
 def _project_scene(scene: GaussianScene, modelview, projection, width,
                    height, *, viewer_exact, cutout, support_eps
                    ) -> ProjectedGaussians:
-    cov3d = (cov6_to_mat(_cov6(scene, True)) if viewer_exact
-             else build_covariances(scene.quats, scene.scales))
-    return project_gaussians(
-        scene.means, cov3d, scene.colors, scene.opacities,
-        modelview, projection, width, height,
-        max_scales=scene.scales.amax(dim=-1),
-        cutout=cutout,
-        sh=scene.sh,
-        support_eps=support_eps,
-    )
+    with trace.span("sj.project"):
+        cov3d = (cov6_to_mat(_cov6(scene, True)) if viewer_exact
+                 else build_covariances(scene.quats, scene.scales))
+        return project_gaussians(
+            scene.means, cov3d, scene.colors, scene.opacities,
+            modelview, projection, width, height,
+            max_scales=scene.scales.amax(dim=-1),
+            cutout=cutout,
+            sh=scene.sh,
+            support_eps=support_eps,
+        )
 
 
 def _draw_binned(proj: ProjectedGaussians, b: BinnedInstances,
@@ -346,12 +348,14 @@ class CachedBins(NamedTuple):
 
 def _gather_param_cache(scene: GaussianScene, bins: BinnedInstances,
                         viewer_exact: bool) -> CachedBins:
-    gid = bins.gauss_id.long()
-    params = [t.index_select(0, gid) for t in (
-        scene.means, _cov6(scene, viewer_exact), scene.colors,
-        scene.opacities, scene.scales.amax(dim=-1))]
-    sh = None if scene.sh is None else scene.sh.index_select(0, gid)
-    return CachedBins(bins, *params, sh, pack_cached_rows(*params))
+    with trace.span("sj.gather"):
+        gid = bins.gauss_id.long()
+        trace.count(rows=gid.shape[0])
+        params = [t.index_select(0, gid) for t in (
+            scene.means, _cov6(scene, viewer_exact), scene.colors,
+            scene.opacities, scene.scales.amax(dim=-1))]
+        sh = None if scene.sh is None else scene.sh.index_select(0, gid)
+        return CachedBins(bins, *params, sh, pack_cached_rows(*params))
 
 
 def bin_scene(
@@ -450,11 +454,12 @@ def render_binned(
             packed16=fb == 16)
         return (img, depth) if return_depth else img
     with torch.no_grad():
-        proj = project_gaussians(
-            bins.means, cov6_to_mat(bins.cov6), bins.colors,
-            bins.opacities, mv, pr, w, h, max_scales=bins.max_scales,
-            cutout=_as_tensor(cutout, dev), sh=bins.sh,
-        )
+        with trace.span("sj.project"):
+            proj = project_gaussians(
+                bins.means, cov6_to_mat(bins.cov6), bins.colors,
+                bins.opacities, mv, pr, w, h, max_scales=bins.max_scales,
+                cutout=_as_tensor(cutout, dev), sh=bins.sh,
+            )
         # rows are already in tile order: pack, no gather
         rows = pack_table(features_from_projection(proj), fb == 16)
         out = _rasterize_fwd(rows, b.starts, b.ends, b.order, cfg, clip,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from splatjax_torch import trace
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
 from splatjax_torch.parallel.dist_render import all_reduce
@@ -89,18 +90,28 @@ def make_train_step(cameras: Sequence[Camera], cfg: FitConfig,
     w, h = cameras[0].width, cameras[0].height
 
     def one_step(params, opt, modelview, projection, target):
-        cam = Camera(modelview=modelview, projection=projection,
-                     width=w, height=h)
-        opt.zero_grad(set_to_none=True)
-        img = render(params.to_scene(), cam, capacity=capacity,
-                     alpha_clip=cfg.alpha_clip, early_stop=cfg.early_stop,
-                     feature_bytes=cfg.feature_bytes)
-        loss = combined_loss(img, target, ssim_weight=cfg.ssim_weight)
-        loss.backward()
-        opt.step()
-        with torch.no_grad():
-            return loss.detach(), psnr(img, target), \
-                params.means.grad.norm(dim=-1)
+        with trace.root("sj.step"):
+            cam = Camera(modelview=modelview, projection=projection,
+                         width=w, height=h)
+            opt.zero_grad(set_to_none=True)
+            img = render(params.to_scene(), cam, capacity=capacity,
+                         alpha_clip=cfg.alpha_clip,
+                         early_stop=cfg.early_stop,
+                         feature_bytes=cfg.feature_bytes)
+            with trace.span("sj.loss"):
+                loss = combined_loss(img, target,
+                                     ssim_weight=cfg.ssim_weight)
+            # the backward in two calls, so the loss's part and the
+            # render's part are timed apart: the same nodes in the same
+            # order as one loss.backward(), so the same gradients
+            with trace.span("sj.loss_bwd"):
+                g_img, = torch.autograd.grad(loss, img)
+            with trace.span("sj.render_bwd"):
+                img.backward(g_img)
+            opt.step()
+            with torch.no_grad():
+                return loss.detach(), psnr(img, target), \
+                    params.means.grad.norm(dim=-1)
 
     if cfg.steps_per_call <= 1:
         return one_step

@@ -21,6 +21,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from splatjax_torch import trace
 from splatjax_torch.camera import Camera
 from splatjax_torch.device import resolve_device
 from splatjax_torch.io.ply_format import parse_ply_bytes
@@ -167,33 +168,34 @@ class SplatRenderer:
         ``pixel_ratio``. ``overrides`` are passed on to
         :func:`splatjax_torch.render.render` and force the exact per-frame
         path (with a warning when ``resort_interval > 1``)."""
-        self._materialize()
-        if self.scene is None or self.scene.num_gaussians == 0:
-            raise ValueError("no scene loaded (src/scene/feed)")
-        camera = _scale_camera(
-            camera, self.xr_pixel_ratio if xr else self.pixel_ratio)
-        if self.resort_interval > 1:
-            if not overrides:
-                return self._render_stale_order(camera)
-            # the cached tile index cannot honour arbitrary render() kwargs
-            warnings.warn(
-                "SplatRenderer.render(**overrides) bypasses the cached "
-                "stale-order tile index (resort_interval ignored): "
-                f"exact per-frame sort used for {sorted(overrides)}",
-                stacklevel=2,
+        with trace.root("sj.frame"):
+            self._materialize()
+            if self.scene is None or self.scene.num_gaussians == 0:
+                raise ValueError("no scene loaded (src/scene/feed)")
+            camera = _scale_camera(
+                camera, self.xr_pixel_ratio if xr else self.pixel_ratio)
+            if self.resort_interval > 1:
+                if not overrides:
+                    return self._render_stale_order(camera)
+                # the cached tile index cannot honour arbitrary render() kwargs
+                warnings.warn(
+                    "SplatRenderer.render(**overrides) bypasses the cached "
+                    "stale-order tile index (resort_interval ignored): "
+                    f"exact per-frame sort used for {sorted(overrides)}",
+                    stacklevel=2,
+                )
+            kw = dict(
+                tile_size=self.tile_size,
+                capacity=self.capacity,
+                alpha_clip=self.alpha_clip,
+                early_stop=self.early_stop,
+                viewer_exact=self.viewer_exact,
+                feature_bytes=self.feature_bytes,
+                cutout=self.cutout,
+                background=self.background,
             )
-        kw = dict(
-            tile_size=self.tile_size,
-            capacity=self.capacity,
-            alpha_clip=self.alpha_clip,
-            early_stop=self.early_stop,
-            viewer_exact=self.viewer_exact,
-            feature_bytes=self.feature_bytes,
-            cutout=self.cutout,
-            background=self.background,
-        )
-        kw.update(overrides)
-        return render(self.scene, camera, **kw)
+            kw.update(overrides)
+            return render(self.scene, camera, **kw)
 
     def _render_stale_order(self, camera: Camera):
         """A frame against a possibly stale tile index, rebuilt every
