@@ -5,7 +5,16 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build the CUDA kernels from ``splatjax_torch/csrc`` (one nvcc each,
-     started together);
+     started together); the projection pair (``project_params``) against
+     its plain version at 1M splats without SH at 1920x1080 and 3M with
+     SH 3 at 1237x822: the mask equal, the other fields within 1e-6 of
+     each gaussian's largest |value| (bit-equal as measured), the tile
+     lists binning builds on both (differing instances listed), every
+     gradient's worst leaf against the hand-written plain backward within
+     3x the plain backward's own distance from autograd through the plain
+     composition plus 1e-5 of that leaf's largest |gradient|; each
+     kernel's time by CUDA events beside its byte bound and the plain
+     versions';
   2. K1 (expansion) against its plain version on the full-width frame and
      on edge cases (a long row of empty gaussians, screen-filling ones,
      capacity above and below the total, a long tail of gaussians at
@@ -207,6 +216,15 @@ ORBIT = [(0.02 * math.sin(t), 0.02 * math.cos(t), 2.8)
          for t in (2.0 * math.pi * i / 8 for i in range(8))]
 REDRAW_LAPS = 2
 QUEUE_CYCLES = 20_000_000  # device wait (~10 ms) that kernel_ms queues behind
+# the projection pair against its plain version: (splats, SH bands, width,
+# height), the jump frame's and the fit step's shapes
+PROJ_SHAPES = ((1_000_000, 0, 1920, 1080), (3_000_000, 15, 1237, 822))
+PROJ_TOL = 1e-6        # projection kernel vs plain: float fields, relative
+# gradients: the kernel within 3x what the plain backward differs from
+# autograd through the plain composition (f32 rounding, amplified where a
+# gaussian's 2D eigenvalues nearly meet), plus PROJ_GRAD_TOL, each as a
+# share of the leaf's largest |gradient|
+PROJ_GRAD_TOL = 1e-5
 RESORT_INTERVAL = 8
 ASSET_FRAMES = 3       # frames of SplatRenderer(src=.ply) in the asset path
 DENSE_STEPS = 8        # fit() steps of the densify + checkpoint path
@@ -400,6 +418,206 @@ def binned_rows(scene, cam, capacity, early_stop, packed16=False, tile=16):
         rows = gather_rows(pack_table(features_from_projection(proj),
                                       packed16), b.gauss_id)
     return cfg, b, rows
+
+
+def projection_inputs(n, bands, seed=21):
+    """A ``tile_scene`` of the fixture at ``n`` splats with unit
+    quaternions and, with ``bands``, SH drawn N(0, 0.1) (the fit cell's)."""
+    import dataclasses
+
+    import torch
+    from splatjax_torch.io import load_splat, tile_scene
+
+    scene = tile_scene(load_splat(FIXTURE), n).normalized()
+    if bands:
+        g = torch.Generator(device=scene.device).manual_seed(seed)
+        scene = dataclasses.replace(scene, sh=0.1 * torch.randn(
+            (n, bands, 3), generator=g, device=scene.device))
+    return scene
+
+
+def projection_bytes(n, bands):
+    """(forward, backward) bytes the pair must move: each parameter,
+    cotangent and output row once."""
+    sh = 12 * bands
+    color = 12 if bands else 0
+    fwd = n * (12 + 16 + 12 + 4 + color + sh + 8 + 12 + 4 + 1 + 8 + color)
+    bwd = n * 2 * (12 + 16 + 12 + color + sh) + n * (8 + 12 + 4 + color)
+    return fwd, bwd
+
+
+def bins_of(proj, cfg):
+    """Tile lists of a projection: bin_gaussians at its own demand."""
+    import torch
+    from splatjax_torch.ops.binning import bin_gaussians
+
+    with torch.no_grad():
+        need = int(bin_gaussians(proj, cfg, 1024).num_instances)
+        return bin_gaussians(proj, cfg, -(-need // 1024) * 1024)
+
+
+def check_projection():
+    """project_params' kernel pair against its plain version at the jump
+    frame's and the fit step's shapes: every forward field (the mask
+    equal, the rest within PROJ_TOL relative), every gradient of seeded
+    cotangents (worst leaf against that leaf's largest gradient, against
+    the hand-written plain backward and against autograd through the
+    plain composition), and the tile lists that binning builds on both.
+    Times each kernel by CUDA events beside its byte bound, the plain
+    forward and backward, and autograd's backward of the composition."""
+    import torch
+    from splatjax_torch import kernels, make_camera
+    from splatjax_torch.ops import projection as P
+    from splatjax_torch.ops.binning import TileConfig
+    from splatjax_torch.scene import build_covariances
+
+    fields = ("mean2d", "conic", "depth", "bbox_half", "color")
+    leaves = ("means", "quats", "scales", "colors", "sh")
+    rows = {}
+    for n, bands, w, h in PROJ_SHAPES:
+        what = f"{n} splats, SH bands {bands}, {w}x{h}"
+        scene = projection_inputs(n, bands)
+        cam = make_camera(EYE, (0, 0, 0), width=w, height=h)
+        mv, pr = cam.modelview, cam.projection
+        args = (scene.means, scene.colors, scene.opacities, mv, pr, w, h)
+        kw = dict(quats=scene.quats, scales=scene.scales, sh=scene.sh,
+                  support_eps=1e-4)
+
+        def plain_fwd(lv=None):
+            lv = lv or dict(means=scene.means, quats=scene.quats,
+                            scales=scene.scales, colors=scene.colors,
+                            sh=scene.sh)
+            return P.project_gaussians(
+                lv["means"], build_covariances(lv["quats"], lv["scales"]),
+                lv["colors"], scene.opacities, mv, pr, w, h,
+                max_scales=lv["scales"].amax(dim=-1), sh=lv["sh"],
+                support_eps=1e-4)
+
+        with torch.no_grad():
+            kernels.reset_launches()
+            pk = P.project_params(*args, **kw)
+            sync()
+            if kernels.LAUNCHES["project_fwd"] != 1:
+                raise AssertionError(f"project_fwd launches "
+                                     f"{kernels.LAUNCHES['project_fwd']}")
+            pp = plain_fwd()
+        flipped = int((pk.mask != pp.mask).sum())
+        if flipped:
+            raise AssertionError(f"[project] {what}: mask differs at "
+                                 f"{flipped} gaussians")
+        errs, differ = {}, {}
+        for f in fields:
+            a, b = getattr(pk, f), getattr(pp, f)
+            a, b = a.reshape(n, -1), b.reshape(n, -1)
+            scale = b.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+            errs[f] = float(((a - b).abs() / scale).nan_to_num(0.0).max())
+            differ[f] = float((a != b).any(-1).float().mean())
+        log(f"[project] {what}: mask equal ({int(pk.mask.sum())} kept); "
+            "max error against the gaussian's largest |value| (share of "
+            "gaussians not bit-equal) " + ", ".join(
+                f"{f} {e:.3g} ({differ[f]:.3g})" for f, e in errs.items()))
+        if max(errs.values()) > PROJ_TOL:
+            raise AssertionError(f"[project] {what}: {errs} over {PROJ_TOL}")
+
+        cfg = TileConfig(w, h, 16, 16)
+        bk, bp = bins_of(pk, cfg), bins_of(pp, cfg)
+        nk, npl = int(bk.num_instances), int(bp.num_instances)
+        key_k = bk.tile_id[:nk].long() * n + bk.gauss_id[:nk].long()
+        key_p = bp.tile_id[:npl].long() * n + bp.gauss_id[:npl].long()
+        same = nk == npl and bool(torch.equal(key_k, key_p))
+        only_k = key_k[~torch.isin(key_k, key_p)]
+        only_p = key_p[~torch.isin(key_p, key_k)]
+
+        def pairs(keys):
+            return [(int(t), int(i)) for t, i in zip(
+                (keys[:8] // n).tolist(), (keys[:8] % n).tolist())]
+
+        log(f"[project] {what}: binning {nk} / {npl} instances (kernel / "
+            f"plain), tile lists {'equal' if same else 'differ'}; "
+            f"{only_k.numel()} (tile, gaussian) instances only in the "
+            f"kernel's {pairs(only_k)}, {only_p.numel()} only in the "
+            f"plain's {pairs(only_p)}")
+        del bk, bp, key_k, key_p
+
+        g = torch.Generator(device=scene.device).manual_seed(3)
+        cot = {f: torch.randn(getattr(pp, f).shape, generator=g,
+                              device=scene.device)
+               for f in ("mean2d", "conic", "depth", "color")}
+        setup = P._Setup(w, h, False, 1e-4, bands, bands > 0)
+        bwd_in = (scene.means, scene.quats, scene.scales, scene.colors,
+                  scene.sh, mv, pr, setup, cot["mean2d"], cot["conic"],
+                  cot["depth"], cot["color"] if bands else None)
+        kernels.reset_launches()
+        got = P._backward_kernel(*bwd_in)
+        sync()
+        if kernels.LAUNCHES["project_bwd"] != 1:
+            raise AssertionError(f"project_bwd launches "
+                                 f"{kernels.LAUNCHES['project_bwd']}")
+        hand = P.project_backward_plain(*bwd_in)
+        lv = {k: getattr(scene, k).clone().requires_grad_()
+              for k in leaves if getattr(scene, k) is not None}
+        comp = plain_fwd(dict(dict(sh=None), **lv))
+        names = [k for k in leaves if k in lv and (bands or k != "colors")]
+        auto = torch.autograd.grad(
+            sum((getattr(comp, f) * c).sum() for f, c in cot.items()
+                if bands or f != "color"), [lv[k] for k in names])
+        worst = {}
+        for k, a in zip(names, auto):
+            i = leaves.index(k)
+            scale = float(a.abs().max())
+            worst[k] = (float((got[i] - hand[i]).abs().max()) / scale,
+                        float((got[i] - a).abs().max()) / scale,
+                        float((hand[i] - a).abs().max()) / scale)
+            if not torch.isfinite(got[i]).all():
+                raise AssertionError(f"[project] {what}: d{k} not finite")
+        log(f"[project] {what}: gradients, max |diff| / leaf max (kernel vs "
+            "plain, kernel vs autograd, plain vs autograd): " + "; ".join(
+                f"{k} {a:.3g} {b:.3g} {c:.3g}"
+                for k, (a, b, c) in worst.items()))
+        if any(a > 3.0 * c + PROJ_GRAD_TOL for a, _, c in worst.values()):
+            raise AssertionError(f"[project] {what}: {worst}")
+        del comp, auto, hand, got, lv
+
+        fwd_bytes, bwd_bytes = projection_bytes(n, bands)
+        with torch.no_grad():
+            fwd_ms, fwd_note = kernel_ms(
+                lambda: P.project_params(*args, **kw), 20,
+                ("project", "splat_project_fwd"))
+            plain_fwd_ms = cuda_ms(plain_fwd, 5)
+        bwd_ms, bwd_note = kernel_ms(lambda: P._backward_kernel(*bwd_in), 20,
+                                     ("project", "splat_project_bwd"))
+        plain_bwd_ms = cuda_ms(lambda: P.project_backward_plain(*bwd_in), 5)
+        lv = {k: getattr(scene, k).clone().requires_grad_()
+              for k in leaves if getattr(scene, k) is not None}
+
+        def autograd_step():
+            comp = plain_fwd(dict(dict(sh=None), **lv))
+            torch.autograd.grad(
+                sum((getattr(comp, f) * c).sum() for f, c in cot.items()
+                    if bands or f != "color"), [lv[k] for k in names])
+
+        autograd_ms = cuda_ms(autograd_step, 5)
+        for name, ms, note, nbytes, plain_ms in (
+                ("project_fwd", fwd_ms, fwd_note, fwd_bytes, plain_fwd_ms),
+                ("project_bwd", bwd_ms, bwd_note, bwd_bytes, plain_bwd_ms)):
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            log(f"[project] {what}: {name} {ms:.4f} ms ({note}), bound "
+                f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), "
+                f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.3f} ms")
+            rows.setdefault(name, dict(ms=ms, bound_ms=bound_ms,
+                                       bound_by="bytes", plain_ms=plain_ms,
+                                       max_abs_err=0.0))
+            rows[name][f"ms@{n}x{bands}"] = ms
+        log(f"[project] {what}: autograd forward + backward of the plain "
+            f"composition {autograd_ms:.3f} ms")
+        rows["project_fwd"]["max_abs_err"] = max(
+            rows["project_fwd"]["max_abs_err"], max(errs.values()))
+        rows["project_bwd"]["max_abs_err"] = max(
+            rows["project_bwd"]["max_abs_err"],
+            max(v[0] for v in worst.values()))
+        del scene, pk, pp, lv
+        torch.cuda.empty_cache()
+    return rows
 
 
 def sample_tiles(b, cfg, device):
@@ -3136,6 +3354,7 @@ def main() -> int:
         f"(max of the fixture scene and the noisy start), capacity "
         f"{capacity} ({time.perf_counter() - t0:.1f} s)")
 
+    proj_rows = check_projection()
     k1 = check_k1(scene, cam, capacity)
     check_k1_edges(scene.device)
     k2_err = check_k2_small(gate_scene, gate_cam, False)
@@ -3171,7 +3390,9 @@ def main() -> int:
 
     # -- the main paths, counts reset just before each ----------------------
     launches_a, frame_ms, renderer = serving_path(scene, cam, capacity)
-    require(launches_a, ("expand", "rasterize_fwd"), "serving")
+    require(launches_a, ("project_fwd", "expand", "rasterize_fwd"),
+            "serving")
+    check_launches(launches_a, dict(project_fwd=FRAMES), "serving")
     stages = span_stages(lambda: renderer.render(cam), FRAME_STAGES)
     log("[stages] " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
     log(f"[launches] serving: {launches_a} over {FRAMES} frames")
@@ -3183,8 +3404,10 @@ def main() -> int:
         target = render(scene, cam, capacity=capacity)
     launches_b, step_ms, params, cfg = training_path(start, cam, target,
                                                      capacity)
-    require(launches_b, ("expand", "rasterize_fwd16", "rasterize_bwd",
+    require(launches_b, ("project_fwd", "project_bwd", "expand",
+                         "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "training")
+    check_launches(launches_b, dict(project_bwd=TRAIN_STEPS), "training")
     log(f"[launches] training: {launches_b} over {TRAIN_STEPS} steps")
     launches_c = gradient_step_path(params, cam, target, capacity, "i16")
     require(launches_c, ("expand", "rasterize_fwd", "rasterize_bwd",
@@ -3211,7 +3434,8 @@ def main() -> int:
         scene, capacity_e)
     require(launches_e, ("expand", "rasterize_cached"), "redraw")
     want = dict(rasterize_cached=len(ORBIT) * REDRAW_LAPS,
-                expand=REDRAW_LAPS, rasterize_fwd16=0, rasterize_fwd=0)
+                expand=REDRAW_LAPS, project_fwd=REDRAW_LAPS,
+                rasterize_fwd16=0, rasterize_fwd=0)
     if any(launches_e[k] != v for k, v in want.items()):
         raise AssertionError(f"redraw launches {launches_e}, want {want}")
     log(f"[launches] redraw: {launches_e} over "
@@ -3307,6 +3531,12 @@ def main() -> int:
              source=csrc + "segreduce.cu",
              replaces="splatjax/ops/segreduce.py:388",
              launches=total["segreduce_bf16"], **seg["segreduce_bf16"]),
+        dict(name="project_fwd", route="cuda", source=csrc + "project.cu",
+             replaces=None, launches=total["project_fwd"], library_ms=None,
+             **proj_rows["project_fwd"]),
+        dict(name="project_bwd", route="cuda", source=csrc + "project.cu",
+             replaces=None, launches=total["project_bwd"], library_ms=None,
+             **proj_rows["project_bwd"]),
     ]
     sources = {"rasterize_fwd": ("rasterize_fwd", "rasterize_fwd.cu",
                                  "rasterize.py:678"),

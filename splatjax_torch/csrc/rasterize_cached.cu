@@ -32,10 +32,12 @@
 //   by-value kernel argument, so a frame copies nothing to the device;
 // * the projection is splatjax's _project_rows op for op: frustum guard,
 //   cz < 0 and size culls, the +0.3 dilation, the eigen clamps, every cull
-//   folded into opacity = 0. It is written with round-to-nearest
-//   intrinsics, so nvcc contracts none of it into FMAs and the result is
-//   bit-equal to the plain version's separately rounded f32 ops: an ulp on
-//   the mean at x ~ 1000 px would move fragments on the exp(-4) cutoff.
+//   folded into opacity = 0, in the arithmetic of projection.cuh that the
+//   projection kernels (project.cu) share. It is written with
+//   round-to-nearest intrinsics, so nvcc contracts none of it into FMAs
+//   and the result is bit-equal to the plain version's separately rounded
+//   f32 ops: an ulp on the mean at x ~ 1000 px would move fragments on the
+//   exp(-4) cutoff.
 //   Clamps propagate NaN as torch.maximum and jnp.maximum do (fmaxf drops
 //   it), so a degenerate instance decodes to the same values in both;
 // * at 16 px the first thread group (128 threads, one row each) projects
@@ -56,12 +58,10 @@
 #include <math_constants.h>
 
 #include "composite.cuh"
+#include "projection.cuh"
 #include "rows.cuh"
 
 namespace {
-
-constexpr float FRUSTUM_GUARD = 1.2f;
-constexpr float SIZE_CULL_THRESHOLD = 1e-4f;
 
 struct CachedCamera {
   float mv[16];  // world -> camera, row-major
@@ -69,29 +69,6 @@ struct CachedCamera {
   int width;
   int height;
 };
-
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-// max / min against a constant that keep a NaN, as torch and jnp do
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return a != a ? a : fmaxf(a, b);
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return a != a ? a : fminf(a, b);
-}
-// row i of a row-major 4x4 matrix applied to (x, y, z, 1), left to right
-__device__ __forceinline__ float xform(const float* m, int i, float x,
-                                       float y, float z) {
-  return add_rn(add_rn(add_rn(mul_rn(m[4 * i], x), mul_rn(m[4 * i + 1], y)),
-                 mul_rn(m[4 * i + 2], z)),
-             m[4 * i + 3]);
-}
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
-                                      float b1, float b2) {
-  return add_rn(add_rn(mul_rn(a0, b0), mul_rn(a1, b1)), mul_rn(a2, b2));
-}
 
 struct CachedRows {
   const float4* prm;  // (K, 4) float4 = (K, 16) f32 cached rows
@@ -106,78 +83,28 @@ struct CachedRows {
     const float sxx = q0.w, sxy = q1.x, sxz = q1.y;
     const float syy = q1.z, syz = q1.w, szz = q2.x;
     const float opa = q3.x, max_scale = q3.y;
-    const float* mv = cam.mv;
-    const float* pr = cam.pr;
+    const CamPoint p = camera_point(cam.mv, cam.pr, mex, mey, mez);
+    const bool keep =
+        in_frustum(p) && (p.cz < 0.0f) &&
+        (mul_rn(max_scale, opa) > mul_rn(SIZE_CULL_THRESHOLD, -p.cz));
+    const Ewa e =
+        ewa_cov2d<Sum3::LEFT>(cam.mv, focal_px(cam.pr, cam.height), p.cx,
+                              p.cy, p.cz, sxx, sxy, sxz, syy, syz, szz);
+    const float a = e.a, b = e.b, c = e.c;
+    EIGEN_CLAMP(a, b, c, sqrt_rn(max_nan(r2, 0.0f)));
 
-    const float cx = xform(mv, 0, mex, mey, mez);
-    const float cy = xform(mv, 1, mex, mey, mez);
-    const float cz = xform(mv, 2, mex, mey, mez);
-    const float px_c = xform(pr, 0, cx, cy, cz);
-    const float py_c = xform(pr, 1, cx, cy, cz);
-    const float pz_c = xform(pr, 2, cx, cy, cz);
-    const float w_clip = xform(pr, 3, cx, cy, cz);
-
-    const float bounds = mul_rn(FRUSTUM_GUARD, w_clip);
-    const bool in_frustum = (pz_c >= -w_clip) && (px_c >= -bounds) &&
-                            (px_c <= bounds) && (py_c >= -bounds) &&
-                            (py_c <= bounds);
-    const bool keep = in_frustum && (cz < 0.0f) &&
-                      (mul_rn(max_scale, opa) > mul_rn(SIZE_CULL_THRESHOLD, -cz));
-
-    const float focal = mul_rn((float)cam.height * 0.5f, fabsf(pr[5]));
-    const float safe_z = fabsf(cz) < 1e-8f ? 1e-8f : cz;
-    const float fz = div_rn(focal, safe_z);
-    const float fz2 = div_rn(focal, mul_rn(safe_z, safe_z));
-    // T = W J collapsed to two row vectors
-    const float cxf = mul_rn(cx, fz2), cyf = mul_rn(cy, fz2);
-    const float t00 = sub_rn(mul_rn(fz, mv[0]), mul_rn(cxf, mv[8]));
-    const float t01 = sub_rn(mul_rn(fz, mv[1]), mul_rn(cxf, mv[9]));
-    const float t02 = sub_rn(mul_rn(fz, mv[2]), mul_rn(cxf, mv[10]));
-    const float t10 = add_rn(mul_rn(-fz, mv[4]), mul_rn(cyf, mv[8]));
-    const float t11 = add_rn(mul_rn(-fz, mv[5]), mul_rn(cyf, mv[9]));
-    const float t12 = add_rn(mul_rn(-fz, mv[6]), mul_rn(cyf, mv[10]));
-    const float u00 = dot3(sxx, sxy, sxz, t00, t01, t02);
-    const float u01 = dot3(sxy, syy, syz, t00, t01, t02);
-    const float u02 = dot3(sxz, syz, szz, t00, t01, t02);
-    const float u10 = dot3(sxx, sxy, sxz, t10, t11, t12);
-    const float u11 = dot3(sxy, syy, syz, t10, t11, t12);
-    const float u12 = dot3(sxz, syz, szz, t10, t11, t12);
-    const float a = add_rn(dot3(t00, t01, t02, u00, u01, u02), 0.3f);
-    const float b = dot3(t10, t11, t12, u00, u01, u02);
-    const float c = add_rn(dot3(t10, t11, t12, u10, u11, u12), 0.3f);
-
-    const float mid = mul_rn(0.5f, add_rn(a, c));
-    const float h = mul_rn(0.5f, sub_rn(a, c));
-    const float r2 = add_rn(mul_rn(h, h), mul_rn(b, b));
-    const float radius = sqrt_rn(max_nan(r2, 0.0f));
-    const float lam1 = add_rn(mid, radius);
-    const float lam2 = max_nan(sub_rn(mid, radius), 0.1f);
-    const float vx = b, vy = sub_rn(lam1, a);
-    const float v2 = add_rn(mul_rn(vx, vx), mul_rn(vy, vy));
-    const bool ok = v2 > 1e-24f;
-    const float vnorm = sqrt_rn(ok ? v2 : 1.0f);
-    const float dvx = ok ? div_rn(vx, vnorm) : 1.0f;
-    const float dvy = ok ? div_rn(vy, vnorm) : 0.0f;
-    const float len1 = min_nan(sqrt_rn(mul_rn(2.0f, lam1)), 1024.0f);
-    const float len2 =
-        min_nan(sqrt_rn(mul_rn(2.0f, max_nan(lam2, 0.0f))), 1024.0f);
-    const float lam1_eff = max_nan(mul_rn(mul_rn(0.5f, len1), len1), 1e-8f);
-    const float lam2_eff = max_nan(mul_rn(mul_rn(0.5f, len2), len2), 1e-8f);
-    const float inv1 = div_rn(1.0f, lam1_eff);
-    const float inv2 = div_rn(1.0f, lam2_eff);
-
-    const float safe_w = fabsf(w_clip) < 1e-8f ? 1e-8f : w_clip;
+    const float sw = safe_w(p.w);
     Decoded d;
-    d.mx = mul_rn(add_rn(div_rn(px_c, safe_w), 1.0f), (float)cam.width * 0.5f);
-    d.my = mul_rn(add_rn(div_rn(py_c, safe_w), 1.0f), (float)cam.height * 0.5f);
-    d.ca = add_rn(mul_rn(mul_rn(inv1, dvx), dvx), mul_rn(mul_rn(inv2, dvy), dvy));
-    d.cb = mul_rn(mul_rn(sub_rn(inv1, inv2), dvx), dvy);
-    d.cc = add_rn(mul_rn(mul_rn(inv1, dvy), dvy), mul_rn(mul_rn(inv2, dvx), dvx));
+    d.mx = to_pixel(p.px, sw, cam.width);
+    d.my = to_pixel(p.py, sw, cam.height);
+    d.ca = conic_a(inv1, inv2, dvx, dvy);
+    d.cb = conic_b(inv1, inv2, dvx, dvy);
+    d.cc = conic_a(inv1, inv2, dvy, dvx);
     d.r = q2.y;
     d.g = q2.z;
     d.b = q2.w;
     d.opa = keep ? opa : 0.0f;
-    d.depth = cz;
+    d.depth = p.cz;
     return d;
   }
 };

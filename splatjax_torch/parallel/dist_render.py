@@ -37,15 +37,12 @@ from splatjax_torch.ops.binning import (
     check_tile_edge,
     features_from_projection,
 )
-from splatjax_torch.ops.projection import (
-    ProjectedGaussians,
-    project_gaussians,
-)
+from splatjax_torch.ops.projection import ProjectedGaussians, project_params
 from splatjax_torch.ops.rasterize import tiles_to_image
 from splatjax_torch.ops.rasterize_vjp import rasterize_gathered
 from splatjax_torch.parallel.mesh import AxisGroup, AxisName, axis_group
 from splatjax_torch.render import default_capacity, resolve_alpha_clip
-from splatjax_torch.scene import GaussianScene, build_covariances
+from splatjax_torch.scene import GaussianScene
 
 # Most bands one gaussian is sent to, doubled for load-balanced bands,
 # whose heights range from one tile row (``_balanced_boundaries``) to 4x
@@ -344,10 +341,9 @@ def _band_render_body(
     overflow plus the transfer and span drops destined here, bounds
     (D+1,) int32). Differentiable w.r.t. the shard's tensors."""
     n_dev, d, group = ag.size, ag.index, ag.group
-    proj_local = project_gaussians(
-        means, build_covariances(quats, scales), colors, opacities,
-        modelview, projection, width, height,
-        max_scales=scales.amax(dim=-1), sh=sh,
+    proj_local = project_params(
+        means, colors, opacities, modelview, projection, width, height,
+        quats=quats, scales=scales, sh=sh,
         # the opacity-aware support bound of render(); 0 keeps it exact
         support_eps=early_stop if early_stop > 0.0 else None,
     )

@@ -1,16 +1,17 @@
 """End-to-end rendering: scene + camera -> (H, W, 4) image (PyTorch port of
 ``splatjax/render.py``).
 
-covariances -> EWA projection and culls -> tile binning (expansion
-kernel) -> packed-row gather -> forward rasterize kernel -> image. Every
-step runs on the scene's device; on a CUDA device the kernels of
-:mod:`splatjax_torch.kernels` carry the expansion and the rasterization.
+covariances, EWA projection and culls (one projection kernel) -> tile
+binning (expansion kernel) -> packed-row gather -> forward rasterize
+kernel -> image. Every step runs on the scene's device; on a CUDA device
+the kernels of :mod:`splatjax_torch.kernels` carry the projection, the
+expansion and the rasterization.
 
 :func:`render` is differentiable w.r.t. every scene tensor that requires
 grad (and the background): the gather + rasterize step is a
 ``torch.autograd.Function`` whose backward runs the backward rasterize
 kernel and the per-gaussian segment sum (:mod:`.ops.rasterize_vjp`);
-torch autograd covers projection and covariances. So are
+the projection's backward is a kernel too (``project_params``). So are
 :func:`render_instances` and :func:`render_binned` with plain bins.
 
 The stale-order redraw (:func:`bin_scene` + :func:`render_binned`) reuses a
@@ -34,10 +35,7 @@ from splatjax_torch.ops.binning import (
     bin_gaussians,
     features_from_projection,
 )
-from splatjax_torch.ops.projection import (
-    ProjectedGaussians,
-    project_gaussians,
-)
+from splatjax_torch.ops.projection import ProjectedGaussians, project_params
 from splatjax_torch.ops.rasterize import (
     _rasterize_cached_fwd,
     _rasterize_fwd,
@@ -55,7 +53,6 @@ from splatjax_torch.ops.rasterize_vjp import (
 from splatjax_torch.scene import (
     GaussianScene,
     build_covariances,
-    cov6_to_mat,
     covariance_upper,
     dequantize_covariances_int16,
     quantize_covariances_int16,
@@ -115,15 +112,11 @@ def _project_scene(scene: GaussianScene, modelview, projection, width,
                    height, *, viewer_exact, cutout, support_eps
                    ) -> ProjectedGaussians:
     with trace.span("sj.project"):
-        cov3d = (cov6_to_mat(_cov6(scene, True)) if viewer_exact
-                 else build_covariances(scene.quats, scene.scales))
-        return project_gaussians(
-            scene.means, cov3d, scene.colors, scene.opacities,
-            modelview, projection, width, height,
-            max_scales=scene.scales.amax(dim=-1),
-            cutout=cutout,
-            sh=scene.sh,
-            support_eps=support_eps,
+        return project_params(
+            scene.means, scene.colors, scene.opacities, modelview,
+            projection, width, height, quats=scene.quats,
+            scales=scene.scales, cutout=cutout, sh=scene.sh,
+            support_eps=support_eps, viewer_exact=viewer_exact,
         )
 
 
@@ -455,9 +448,9 @@ def render_binned(
         return (img, depth) if return_depth else img
     with torch.no_grad():
         with trace.span("sj.project"):
-            proj = project_gaussians(
-                bins.means, cov6_to_mat(bins.cov6), bins.colors,
-                bins.opacities, mv, pr, w, h, max_scales=bins.max_scales,
+            proj = project_params(
+                bins.means, bins.colors, bins.opacities, mv, pr, w, h,
+                cov6=bins.cov6, max_scales=bins.max_scales,
                 cutout=_as_tensor(cutout, dev), sh=bins.sh,
             )
         # rows are already in tile order: pack, no gather
