@@ -19,8 +19,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      on edge cases (a long row of empty gaussians, screen-filling ones,
      capacity above and below the total, a long tail of gaussians at
      cum_d == capacity, and cumsums past 2^31 saturated at 2^31 - 1):
-     integer-equal; its time by CUDA events and by the profiler, and
-     ``repeat_interleave``'s beside it;
+     integer-equal; its time by CUDA events, and ``repeat_interleave``'s
+     beside it;
   3. K2 (forward rasterize), 32-byte and 16-byte rows, against its plain
      version: <= 1e-4 on r, g, b, T and depth, chunks_done equal, on 64
      sampled tiles of the full-width frame and on every tile of 192x128
@@ -42,10 +42,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      against the gid-sort plain path, run twice (bit-identical); K6
      bit-equal, K5/K7 within (run length) x 2^-23 x (sum of |rows|) per run;
      the same on long runs (33 to 70,000 rows: the whole-block sums and
-     K6's int64 chunk sums), both entries bit-equal to each other; the
-     gather transpose split into its stages by CUDA events
-     (``[seg-stage]``: the gid-sort path and the slot path, for the 16-byte
-     and the 32-byte i16 step);
+     K6's int64 chunk sums), both entries bit-equal to each other;
      then the tail diagnostics (``[tail]``): walked instances per tile
      (mean, p99, max); K2, K3 and K4 on the deepest tile alone beside the
      whole frame; K4 with its tiles ordered by walked instances against
@@ -95,9 +92,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         once resumed from A's step-3 checkpoint; the first pass must clone
         or split and grow the rows; the resumed run bit-identical to A if
         A and B are, else no further from A than B; ``export_ply`` bytes
-        equal to ``save_ply`` of A's scene; the pass alone at 1M timed,
-        device busy per step before and after the growth (K1, K2 16-byte,
-        K4, K7);
+        equal to ``save_ply`` of A's scene (K1, K2 16-byte, K4, K7);
      h. multi-card, on a one-rank NCCL group that ``init_distributed``
         starts (a FileStore under ``build/``): ``render_sharded`` of the
         serving scene under ``make_mesh(1)`` and ``make_mesh_2d((1, 1))``,
@@ -109,9 +104,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         band) step twice from one start, within the gate and compared
         bit for bit; ``fit`` on ``make_mesh_2d((1, 1), ("view",
         "band"))`` 6 steps: the loss falls, drops 0 (K1, K2 16-byte, K4,
-        K7); frame and step times, device busy beside ``render()``'s, the
-        share of NCCL kernels and device copies (at one rank NCCL copies
-        and launches no kernel), the collectives alone by CUDA events;
+        K7); the collectives alone by CUDA events;
      i. tooling and examples, in the same ``build/`` directory after path
         f: the viewer-oracle gate (K1, K2: ``render(viewer_exact=True,
         early_stop=0)`` of test_reference_rasterizer.py's 40-splat scene
@@ -120,9 +113,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         scalar WebGL-viewer pipeline); ``tools.make_fixture`` at its
         defaults with tests/test_fixture.py's checks on the files it
         writes; ``examples.fit_trained_fixture`` at its defaults, held-out
-        PSNR (min of 2 views) >= 25 dB, loss falling, one step profiled at
-        the final rows; the demos at their defaults, demo_render /
-        demo_orbit / demo_stereo / demo_cutout on path f's .splat
+        PSNR (min of 2 views) >= 25 dB, loss falling; the demos at their
+        defaults, demo_render / demo_orbit / demo_stereo / demo_cutout on
+        path f's .splat
         (demo_render bit-equal to ``render()``, demo_orbit exactly 24 K3,
         3 K1 and no K2, the clipped frame unlike the full one,
         demo_train's held-out PSNR above its start), every PNG decoded
@@ -144,37 +137,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         also on the frame without its deepest 1% of tiles); then,
         counted: a one-rank
         ``render_sharded(tile_size=32)`` within 1e-4 of ``render()``, and
-        at 8, 16, 32 and 64 px 10 serving frames through
-        ``SplatRenderer(tile_size=t)``, L1 + Adam steps of
-        ``render(feature_bytes=16, tile_size=t)`` and the 16-byte
-        stale-order redraw over the orbit; ``[tiles]`` and ``[tile-table]``
-        lines (instances, fragments, K2/K3/K4 times and bounds, host
-        medians, device busy and the redraw's device time at each edge);
+        at 8, 16, 32 and 64 px a serving frame through
+        ``SplatRenderer(tile_size=t)``, 3 L1 + Adam steps of
+        ``render(feature_bytes=16, tile_size=t)`` (the loss must fall) and
+        the 16-byte stale-order redraw over the orbit; ``[tiles]`` and
+        ``[tile-table]`` lines (instances, fragments, K2/K3/K4 times and
+        bounds at each edge);
      capacity = the measured demand of both scenes + 3% (paths a-c, h, and
      at each edge j), of
      the base eye and the orbit + 3% (d, e), of the loaded scene + 3% (f),
      ``default_capacity`` of the row count (g); overflow == 0 (path i
      runs the entry points at their own default capacity and reads no
-     overflow);
-     frame, step, stage and kernel times, device busy time and idle share,
-     radix-sort and row-gather kernels per call.
+     overflow).
 Then one line with the card's name and power limit, one JSON line with the
 kernel table, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device it prints no result and exits with 1.
 
 Kernel times come from CUDA events around each launch, queued behind a
 device wait (``kernel_ms``); each ``[k*]`` line says how many launches
-were timed. Device busy time and idle share come from torch.profiler, and
-so do the ``[stages]`` and ``[train-stages]`` lines: the device time of
-the kernels launched inside each of the program's spans
-(``splatjax_torch.trace``) over a profiled serving frame and training step.
+were timed. Bounds take their peaks and work counts from
+``h100_bench/roofline.py``. This script times no path: frame and step
+times, device busy and the per-layer times come from the benchmark
+(``h100_bench/run.py``, ``BENCHMARK.json``) only.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -195,21 +185,6 @@ SEG_ULP = 2.0 ** -23   # K5/K7: run length x SEG_ULP x sum |rows| per run
 PARITY_TOL = 1e-3      # tiled renderer vs reference (viewer-parity budget)
 GRAD_TOL = 2e-3        # gradient gate: atol GRAD_TOL x max, rtol GRAD_TOL
 SAMPLE_TILES = 64
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# f32 operations per walked fragment in K2: the 6-term power polynomial as
-# 5 FMAs (10), the cutoff compare (1) and the alpha exp (1)
-K2_OPS_PER_FRAGMENT = 12
-# K4 per walked fragment, at the least: K2's 12 plus the 10 adds that fold
-# the fragment's sums into its instance's reduction
-K4_OPS_PER_FRAGMENT = 22
-# K3 per walked instance on top of K2's per-fragment count: splatjax's
-# _project_rows counted op by op (7 matrix rows at 6, the culls 13, the
-# Jacobian rows 29, the two covariance products 30, the 2D covariance 17,
-# the eigen clamps 38, the conic 13, the mean 9, one select; each compare,
-# select, divide and square root counted once)
-K3_OPS_PER_INSTANCE = 192
 K3_TOL = 1e-4          # r, g, b, T, depth: K3 vs plain (f32 order)
 FUSED_TOL = 1e-3       # fused 16-byte redraw vs the 32-byte render
 ORBIT = [(0.02 * math.sin(t), 0.02 * math.cos(t), 2.8)
@@ -229,11 +204,6 @@ RESORT_INTERVAL = 8
 ASSET_FRAMES = 3       # frames of SplatRenderer(src=.ply) in the asset path
 DENSE_STEPS = 8        # fit() steps of the densify + checkpoint path
 LEAVES = ("means", "log_scales", "quats", "logit_opacities", "colors")
-# kernels counted by kind in the profiles: a sort's radix passes, and the
-# row gathers of index_select
-KERNEL_KINDS = {"radix-sort kernels": ("RadixSort",),
-                "row-gather kernels": ("vectorized_gather_kernel",
-                                       "indexSelect")}
 
 
 def log(msg: str) -> None:
@@ -303,11 +273,11 @@ def kernel_ms(fn, reps: int, entry: tuple[str, str], tries: int = 3
     raise AssertionError(f"{tries} timings of {entry[1]} outran their wait")
 
 
-def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
-                   count: int = 0, tries: int = 3) -> list:
+def traced_kernels(fn, calls: int, *, want: str = "", count: int = 0,
+                   tries: int = 3) -> list:
     """The device-side kernel records (torch.profiler ``key_averages``) of
-    a trace of ``calls`` calls of ``fn``, after one warm-up call; with
-    ``cpu`` the host's activity is traced too. torch.profiler can return
+    a trace of the host and the device over ``calls`` calls of ``fn``,
+    after one warm-up call. torch.profiler can return
     a trace that lacks kernels the calls ran (dropped CUPTI records), so
     a trace with no kernel record whose name holds ``want`` (or, with
     ``count``, with another number of them) is taken again, at most
@@ -315,7 +285,7 @@ def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    acts = [ProfilerActivity.CUDA, ProfilerActivity.CPU]
     fn()
     sync()
     for _ in range(tries):
@@ -337,53 +307,21 @@ def traced_kernels(fn, calls: int, *, cpu: bool = True, want: str = "",
                          "traces")
 
 
-def profiler_kernel_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
-    """Mean device time of the records of the kernels whose name holds
-    ``kernel`` in a torch.profiler trace of ``reps`` calls of ``fn`` (no
-    events around the launches), and how many records the trace held."""
-    recs = [e for e in traced_kernels(fn, reps, cpu=False, want=kernel)
-            if kernel in e.key]
-    n = sum(e.count for e in recs)
-    return sum(e.self_device_time_total for e in recs) / n / 1e3, n
+def roofline():
+    """``h100_bench/roofline.py``: the H100's peaks and the rasterizers'
+    operations per fragment and per instance, shared with the benchmark."""
+    bench = os.path.join(HERE, "h100_bench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    import roofline
 
-
-def event_stages(stages, reps: int = 5) -> dict:
-    """Device time of each stage of a pipeline by CUDA events: ``stages``
-    is a list of (name, fn), each fn taking the dict of the earlier stages'
-    results. One warm-up run, then ``reps`` runs queued behind a device
-    wait of QUEUE_CYCLES, so host gaps between launches do not count;
-    returns the mean per stage."""
-    import torch
-
-    def run(events):
-        res = {}
-        if events:
-            events[0].record()
-        for i, (name, fn) in enumerate(stages):
-            res[name] = fn(res)
-            if events:
-                events[i + 1].record()
-
-    run(None)
-    sync()
-    evs = [[torch.cuda.Event(enable_timing=True)
-            for _ in range(len(stages) + 1)] for _ in range(reps)]
-    torch.cuda._sleep(QUEUE_CYCLES)
-    waited = torch.cuda.Event()
-    waited.record()
-    for ev in evs:
-        run(ev)
-    if waited.query():
-        log("[timing] event_stages: the device wait ended before every "
-            "stage was queued; host gaps count")
-    sync()
-    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / reps
-            for i, (name, _) in enumerate(stages)}
+    return roofline
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
+    r = roofline()
+    t_bytes = bytes_moved / r.PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / r.PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -600,7 +538,7 @@ def check_projection():
         for name, ms, note, nbytes, plain_ms in (
                 ("project_fwd", fwd_ms, fwd_note, fwd_bytes, plain_fwd_ms),
                 ("project_bwd", bwd_ms, bwd_note, bwd_bytes, plain_bwd_ms)):
-            bound_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = nbytes / roofline().PEAK_BYTES_PER_S * 1e3
             log(f"[project] {what}: {name} {ms:.4f} ms ({note}), bound "
                 f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), "
                 f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.3f} ms")
@@ -657,8 +595,6 @@ def check_k1(scene, cam, capacity):
     n = d.cum_d.shape[0]
     ms, timed = kernel_ms(lambda: expand_instances(*args), 20,
                            ("expand", "splat_expand_instances"))
-    prof_ms, records = profiler_kernel_ms(lambda: expand_instances(*args),
-                                          20, "expand")
     plain_ms = cuda_ms(lambda: expand_instances_plain(*args), 3)
     total = int(d.cum_d[-1])
     lib_ms = cuda_ms(lambda: torch.repeat_interleave(
@@ -669,8 +605,7 @@ def check_k1(scene, cam, capacity):
         slots * (math.ceil(math.log2(max(n, 2))) + 8),
     )
     log(f"[k1] N={n} capacity={capacity} integer-equal; kernel {ms:.4f} ms "
-        f"by events ({timed}), {prof_ms:.4f} ms by the profiler ({records} "
-        f"records of 20 launches), plain {plain_ms:.4f} ms, "
+        f"by events ({timed}), plain {plain_ms:.4f} ms, "
         f"repeat_interleave(perm, count_d) {lib_ms:.4f} ms (the gid half "
         f"only), bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -833,7 +768,7 @@ def check_k2_full(scene, cam, capacity, packed16, tile=16):
     p = cfg.pixels_per_tile
     b_ms, b_by = bound(
         walked * (16 if packed16 else 32) + cfg.num_tiles * (8 * p * 4 + 8),
-        walked * p * K2_OPS_PER_FRAGMENT,
+        walked * p * roofline().FWD_OPS_PER_FRAGMENT,
     )
     log(f"[k2] full frame, {16 if packed16 else 32}-byte rows"
         f"{at_tile(tile)}: {int(b.num_instances)} instances, {walked} "
@@ -1046,7 +981,8 @@ def check_k3_full(scene, cam, capacity, tile=16):
     p = cfg.pixels_per_tile
     b_ms, b_by = bound(
         walked * 64 + cfg.num_tiles * (8 * p * 4 + 8),
-        walked * (p * K2_OPS_PER_FRAGMENT + K3_OPS_PER_INSTANCE),
+        walked * (p * roofline().FWD_OPS_PER_FRAGMENT
+                  + roofline().CACHED_OPS_PER_INSTANCE),
     )
     log(f"[k3] full frame{at_tile(tile)}: {int(bins.bins.num_instances)} "
         "instances, "
@@ -1195,7 +1131,7 @@ def check_k4_full(scene, cam, capacity, packed16, tile=16):
     b_ms, b_by = bound(
         walked * (32 + out_bytes) + cfg.num_tiles * (8 + 8 * p * 4
                                                      + 4 * p * 4),
-        walked * p * K4_OPS_PER_FRAGMENT,
+        walked * p * roofline().BWD_OPS_PER_FRAGMENT,
     )
     log(f"[k4] full frame, {width}-byte rows{at_tile(tile)}: {walked} "
         "walked instances, "
@@ -1599,80 +1535,6 @@ def check_long_runs(device):
     return errs
 
 
-def seg_stage_times(b, g32, g16):
-    """The gather transpose of the training step split into its stages by
-    CUDA events, on the full-width backward's rows: the 16-byte step (K7)
-    and the 32-byte step's default i16 gather (K6), each as the gid-sort
-    path (run ends, stable sort by gid, row index_select, the direct
-    entry) and as the slot path the step takes (the tile sort's inverse,
-    the slot entry); then the whole call the backward makes."""
-    from splatjax_torch.ops import segreduce as sr
-    from splatjax_torch.ops.binning import (
-        _effective_cum, _gid_order, quantize_grad_u16,
-        segment_sum_by_gid, segment_sum_by_gid_packed_bf16,
-        tile_slot_positions,
-    )
-
-    import torch
-
-    k = g16.shape[0]
-    runs = b.count_d.double()
-    log(f"[seg-stage] runs (instances per gaussian) over {runs.numel()} "
-        f"gaussians: mean {float(runs.mean()):.3f}, p99 "
-        f"{float(torch.quantile(runs, 0.99)):.0f}, max {int(runs.max())}; "
-        "runs longer than 8/16/32/64/128/1024: " + "/".join(
-            str(int((runs > t).sum())) for t in (8, 16, 32, 64, 128, 1024)))
-    res = (b.cum, b.count, b.perm, b.cum_d, b.count_d, b.overflow)
-    eff = ("eff_cum", lambda r: _effective_cum(*res, k))
-    sort = ("gid sort", lambda r: _gid_order(b.gauss_id))
-    slot = ("slot_pos", lambda r: tile_slot_positions(b.by_tile))
-    quant = ("quantize", lambda r: quantize_grad_u16(g32)[0])
-    paths = {
-        "16-byte step (K7), gid-sort path": [
-            eff, sort,
-            ("row index_select",
-             lambda r: g16.index_select(0, r["gid sort"])),
-            ("K7", lambda r: sr.segment_reduce_packed_bf16(
-                r["row index_select"], r["eff_cum"]))],
-        "32-byte step, i16 gather (K6), gid-sort path": [
-            eff, quant, sort,
-            ("row index_select",
-             lambda r: r["quantize"].index_select(0, r["gid sort"])),
-            ("K6", lambda r: sr.segment_reduce_packed_u16(
-                r["row index_select"], r["eff_cum"]))],
-        "16-byte step (K7), slot path": [
-            slot, ("K7", lambda r: sr._segment_reduce_slots_packed_bf16(
-                g16, r["slot_pos"], b.cum_d, b.perm))],
-        "32-byte step, i16 gather (K6), slot path": [
-            slot, quant,
-            ("K6", lambda r: sr._segment_reduce_slots_packed_u16(
-                r["quantize"], r["slot_pos"], b.cum_d, b.perm))],
-        "whole calls as the backward makes them": [
-            ("segment_sum_by_gid_packed_bf16 (16-byte)",
-             lambda r: segment_sum_by_gid_packed_bf16(
-                 g16, b.gauss_id, *res, by_tile=b.by_tile)),
-            ("segment_sum_by_gid (i16)",
-             lambda r: segment_sum_by_gid(g32, b.gauss_id, *res,
-                                          by_tile=b.by_tile))],
-    }
-    out = {}
-    prev = os.environ.get("SPLATJAX_GRAD_GATHER")
-    os.environ["SPLATJAX_GRAD_GATHER"] = "i16"
-    try:
-        times = {what: event_stages(stages) for what, stages in paths.items()}
-    finally:
-        if prev is None:
-            del os.environ["SPLATJAX_GRAD_GATHER"]
-        else:
-            os.environ["SPLATJAX_GRAD_GATHER"] = prev
-    for what, t in times.items():
-        log(f"[seg-stage] {what}: " + ", ".join(
-            f"{name} {ms:.4f} ms" for name, ms in t.items())
-            + f"; sum {sum(t.values()):.4f} ms")
-        out[what] = t
-    return out
-
-
 def parity_gate(gate_scene, gate_cam, tile=16, capacity=None):
     """``capacity``: None for render()'s default (4 N, which the gate scene
     overflows at 8 px tiles)."""
@@ -1745,85 +1607,6 @@ def gradient_gate(gate_scene, gate_cam, tile=16, capacity=None):
     return float(err.max()) / scale
 
 
-# the [stages] and [train-stages] lines: label -> (the program's span,
-# the spans inside it left out); the last of each is the root's self time
-FRAME_STAGES = {
-    "project": ("sj.project", ()), "bin": ("sj.bin", ()),
-    "pack+gather": ("sj.gather", ()),
-    "rest (features, K2, assemble)": (
-        "sj.frame", ("sj.project", "sj.bin", "sj.gather")),
-}
-ADAM = "Optimizer.step#Adam.step"
-STEP_STAGES = {
-    "project": ("sj.project", ()), "bin": ("sj.bin", ()),
-    "pack16+gather": ("sj.gather", ()), "loss fwd": ("sj.loss", ()),
-    "loss bwd": ("sj.loss_bwd", ()), "K4": ("sj.rasterize_bwd", ()),
-    "gather transpose (slot_pos+K7)": ("sj.gather_bwd", ()),
-    "autograd through projection": (
-        "sj.render_bwd", ("sj.rasterize_bwd", "sj.gather_bwd")),
-    "Adam": (ADAM, ()),
-    "rest (features, K2, assemble, norms)": (
-        "sj.step", ("sj.project", "sj.bin", "sj.gather", "sj.loss",
-                    "sj.loss_bwd", "sj.render_bwd", ADAM)),
-}
-
-
-def span_stages(fn, stages: dict, calls: int = 5) -> dict:
-    """Device ms per call of each stage, from the program's own spans in
-    one torch.profiler window over ``calls`` calls of ``fn`` after a
-    warm-up call: the kernels launched inside each stage's span, less
-    those launched inside the spans it leaves out. Also the host ms inside
-    the root span (the last stage's) and the device's idle ms within it."""
-    bench = os.path.join(HERE, "h100_bench")
-    if bench not in sys.path:
-        sys.path.append(bench)
-    import profiling
-    import spans
-
-    fn()
-    sync()
-    out = []
-    with profiling.traced(calls, out):
-        for _ in range(calls):
-            fn()
-        sync()
-    t = out[0]
-    ms = {label: (spans.device_s(t, name, leave) or 0.0) * 1e3 / calls
-          for label, (name, leave) in stages.items()}
-    root = list(stages.values())[-1][0]
-    ms["host in " + root] = (spans.host_s(t, root) or 0.0) * 1e3 / calls
-    ms["device idle in " + root] = \
-        (spans.idle_s(t, root) or 0.0) * 1e3 / calls
-    return ms
-
-
-def profile_calls(fn, calls: int = 5, want: str = "", tries: int = 3):
-    """Device busy time per call and the kernels that take it, from
-    torch.profiler over ``calls`` calls of ``fn``; with ``want``, a trace
-    without exactly one record a call of a kernel named so is retaken
-    (``traced_kernels``)."""
-    kern = traced_kernels(fn, calls, want=want, count=calls if want else 0,
-                          tries=tries)
-    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
-    launches = sum(e.count for e in kern) / calls
-    top = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
-           for e in kern[:14]]
-    kinds = {kind: sum(e.count for e in kern if any(p in e.key
-                                                     for p in pats)) / calls
-             for kind, pats in KERNEL_KINDS.items()}
-    return busy_ms, launches, top, kinds
-
-
-def log_profile(tag, busy_ms, n_kernels, top, kinds, median_ms):
-    log(f"[{tag}] device busy {busy_ms:.3f} ms per call over "
-        f"{n_kernels:.0f} kernels, idle share "
-        f"{max(0.0, 1.0 - busy_ms / median_ms):.3f} of the median; per "
-        "call " + ", ".join(f"{v:.0f} {k}" for k, v in kinds.items()))
-    for name, ms, calls in top:
-        log(f"[{tag}]   {ms:8.4f} ms  x{calls:<3d} {name[:90]}")
-
-
 def demand(scene, cam, feature_bytes=32, tile=16):
     """Instances the frame needs (capacity 1024 plus the overflow)."""
     import torch
@@ -1851,8 +1634,7 @@ def noisy_start(scene):
 
 
 def serving_path(scene, cam, capacity):
-    """Path a: 10 frames through SplatRenderer. Returns the launches, the
-    frame times and the renderer."""
+    """Path a: 10 frames through SplatRenderer. Returns the launches."""
     import torch
     from splatjax_torch import SplatRenderer, kernels
 
@@ -1862,13 +1644,9 @@ def serving_path(scene, cam, capacity):
         raise AssertionError(f"overflow {int(overflow)} at capacity "
                              f"{capacity}")
     kernels.reset_launches()
-    frame_ms = []
     for _ in range(FRAMES):
-        sync()
-        t0 = time.perf_counter()
         img = renderer.render(cam)
-        sync()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    sync()
     launches = dict(kernels.LAUNCHES)
     if tuple(img.shape) != (HEIGHT, WIDTH, 4) or \
             not bool(torch.isfinite(img).all()):
@@ -1877,16 +1655,14 @@ def serving_path(scene, cam, capacity):
     if not (float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0
             and float(alpha.mean()) > 0.05):
         raise AssertionError("full-width frame alpha out of range or empty")
-    log(f"[frame] {FRAMES} frames 1M splats {WIDTH}x{HEIGHT}: median "
-        f"{statistics.median(frame_ms):.3f} ms (all: "
-        f"{', '.join(f'{t:.3f}' for t in frame_ms)}); mean alpha "
+    log(f"[serving] {FRAMES} frames 1M splats {WIDTH}x{HEIGHT}: mean alpha "
         f"{float(alpha.mean()):.4f}")
-    return launches, frame_ms, renderer
+    return launches
 
 
 def training_path(start, cam, target, capacity):
     """Path b: fit() for TRAIN_STEPS steps, FitConfig defaults. Returns the
-    launches, the step times and the trained parameters."""
+    launches and the trained parameters."""
     import torch
     from splatjax_torch import kernels
     from splatjax_torch.render import render
@@ -1913,14 +1689,10 @@ def training_path(start, cam, target, capacity):
                              return_overflow=True)
     if int(overflow) != 0:
         raise AssertionError(f"overflow {int(overflow)} after training")
-    ends = [h["elapsed_s"] * 1e3 for h in hist]
-    step_ms = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
-    log(f"[train] fit() {TRAIN_STEPS} steps, 1M splats {WIDTH}x{HEIGHT}, "
+    log(f"[training] fit() {TRAIN_STEPS} steps, 1M splats {WIDTH}x{HEIGHT}, "
         f"16-byte rows: loss {' -> '.join(f'{x:.5f}' for x in losses)}; "
-        f"psnr {hist[0]['psnr']:.3f} -> {hist[-1]['psnr']:.3f} dB; step "
-        f"median {statistics.median(step_ms):.3f} ms (all: "
-        f"{', '.join(f'{t:.3f}' for t in step_ms)})")
-    return launches, step_ms, params, cfg
+        f"psnr {hist[0]['psnr']:.3f} -> {hist[-1]['psnr']:.3f} dB")
+    return launches, params
 
 
 def gradient_step_path(params, cam, target, capacity, mode):
@@ -1984,9 +1756,8 @@ def redraw_capacity(scene, tile=16):
 
 
 def redraw_path(scene, capacity):
-    """Path e: the stale-order redraw over the orbit, 16-byte rows. Returns
-    the launches, the redraw frame times, the rebuild frame times and the
-    renderer."""
+    """Path d: the stale-order redraw over the orbit, 16-byte rows. Returns
+    the launches."""
     from splatjax_torch import SplatRenderer, kernels, make_camera
 
     eyes = [make_camera(e, (0, 0, 0), width=WIDTH, height=HEIGHT)
@@ -1997,30 +1768,22 @@ def redraw_path(scene, capacity):
                              alpha_clip=0.999, early_stop=1e-4)
     sync()
     kernels.reset_launches()
-    redraw_ms, rebuild_ms = [], []
     for i, c in enumerate(eyes):
-        sync()
-        t0 = time.perf_counter()
         img = renderer.render(c)
-        sync()
-        (rebuild_ms if i % RESORT_INTERVAL == 0 else redraw_ms).append(
-            (time.perf_counter() - t0) * 1e3)
         if i % RESORT_INTERVAL == 0 and \
                 int(renderer._bins.bins.overflow) != 0:
             raise AssertionError(f"redraw overflow at capacity {capacity}")
+    sync()
     launches = dict(kernels.LAUNCHES)
     mean_alpha = check_frame(img, "redraw")
-    log(f"[redraw] {len(eyes)} orbit frames, 1M splats {WIDTH}x{HEIGHT}, "
-        f"16-byte rows, resort_interval {RESORT_INTERVAL}: redraw median "
-        f"{statistics.median(redraw_ms):.3f} ms (all: "
-        f"{', '.join(f'{t:.3f}' for t in redraw_ms)}); frames that rebuilt "
-        f"the index {', '.join(f'{t:.3f}' for t in rebuild_ms)} ms; mean "
-        f"alpha {mean_alpha:.4f}")
-    return launches, redraw_ms, rebuild_ms, renderer
+    log(f"[redraw16] {len(eyes)} orbit frames, 1M splats {WIDTH}x{HEIGHT}, "
+        f"16-byte rows, resort_interval {RESORT_INTERVAL}: mean alpha "
+        f"{mean_alpha:.4f}")
+    return launches
 
 
 def redraw32_path(scene, cam, capacity):
-    """Path f: the stale-order redraw with 32-byte rows at the unchanged
+    """Path e: the stale-order redraw with 32-byte rows at the unchanged
     camera; the frame against render(). Returns the launches."""
     from splatjax_torch import SplatRenderer, kernels
     from splatjax_torch.render import render
@@ -2169,15 +1932,14 @@ def densify_path(start, cam, target, workdir):
     errors there."""
     import shutil
 
-    import numpy as np
     import torch
     from splatjax_torch import kernels
     from splatjax_torch.io import save_ply
     from splatjax_torch.render import default_capacity
     from splatjax_torch.scene import TrainableGaussians
     from splatjax_torch.train import (
-        CheckpointManager, DensifyConfig, FitConfig, densify_and_prune,
-        export_ply, fit, make_train_step,
+        CheckpointManager, DensifyConfig, FitConfig, export_ply, fit,
+        make_train_step,
     )
     from splatjax_torch.train.fit import _optimizer
 
@@ -2197,15 +1959,7 @@ def densify_path(start, cam, target, workdir):
     threshold = float(torch.quantile(gnorm[gnorm > 0].float(), 0.9))
     dense = DensifyConfig(start=0, stop=DENSE_STEPS, every=3,
                           grad_threshold=threshold)
-    # the densify pass alone at 1M, on the probe's gradients and moments
     n0 = probe.num_gaussians
-    sync()
-    t0 = time.perf_counter()
-    _, _, _, rep0 = densify_and_prune(
-        probe, popt, gnorm.double().cpu().numpy(), np.ones((n0,), np.int64),
-        np.ones((n0,), bool), dense, np.random.default_rng(0))
-    sync()
-    pass_s = time.perf_counter() - t0
     del probe, popt, step
 
     sync()
@@ -2213,14 +1967,10 @@ def densify_path(start, cam, target, workdir):
     runs, reports, hists = {}, {}, {}
     for name in ("A", "B"):
         events = []
-        t0 = time.perf_counter()
         runs[name], hists[name] = fit(
             fresh(), [cam], [target], cfg,
             checkpoint_dir=os.path.join(workdir, name), checkpoint_every=3,
             densify=dense, densify_seed=1, log_fn=events.append)
-        sync()
-        log(f"[densify] run {name}: {DENSE_STEPS} steps in "
-            f"{time.perf_counter() - t0:.3f} s")
         reports[name] = [e for e in events if "densify" in e]
     ck = os.path.join(workdir, "resume")
     os.makedirs(ck)
@@ -2272,45 +2022,15 @@ def densify_path(start, cam, target, workdir):
         if f.read() != g.read():
             raise AssertionError("export_ply bytes differ from save_ply's")
 
-    ends = [h["elapsed_s"] * 1e3 for h in hists["A"]]
-    step_ms = [y - x for x, y in zip([0.0] + ends[:-1], ends)]
     log(f"[densify] threshold {threshold:.4g} (90th percentile of a step's "
-        f"mean gradients); the pass alone at {n0} splats: {pass_s:.4f} s "
-        f"({rep0})")
+        f"mean gradients at {n0} splats)")
     log(f"[densify] run A passes: "
-        f"{[(e['step'], e['densify']) for e in reports['A']]}")
-    log(f"[densify] step ms of run A (a pass falls in the record of the "
-        f"step it follows, {[e['step'] for e in reports['A']]}, a checkpoint "
-        f"write in the next one): {', '.join(f'{t:.3f}' for t in step_ms)}"
-        f"; loss "
+        f"{[(e['step'], e['densify']) for e in reports['A']]}; loss "
         f"{' -> '.join(f'{x:.5f}' for x in losses)}")
     log(f"[densify] runs A and B {'bit-identical' if identical else 'differ'}"
         f" (max |A - B| {ab:.3g}); resumed from step 3 vs A: max "
         f"{ra:.3g}; reports A == B: {reports['A'] == reports['B']}; "
         f"export_ply == save_ply bytes; launches {launches}")
-    # device busy per step at the start's row count and the grown one
-    # and the host median of 5 such steps (run A's records also hold the
-    # passes and the checkpoint writes)
-    for name, params in (("before", fresh()), ("after", a)):
-        n = params.num_gaussians
-        fn = make_train_step([cam], cfg, default_capacity(n))
-        opt = _optimizer(params, cfg)
-
-        def one():
-            return fn(params, opt, cam.modelview, cam.projection, target)
-
-        host_ms = []
-        for _ in range(6):
-            sync()
-            t0 = time.perf_counter()
-            one()
-            sync()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        median = statistics.median(host_ms[1:])
-        log(f"[densify] step {name} growth, {n} rows: median {median:.3f} "
-            f"ms of 5 (all: {', '.join(f'{t:.3f}' for t in host_ms[1:])})")
-        log_profile(f"densify-profile {name} growth, {n} rows",
-                    *profile_calls(one, 3), median)
     return launches, grown
 
 
@@ -2386,7 +2106,8 @@ def check_grown(params, cam):
 def collective_share(fn, calls: int = 5) -> tuple[float, float, float]:
     """Device busy ms per call of ``fn`` from torch.profiler, and the ms of
     it in NCCL kernels and in device-to-device copies (NCCL copies instead
-    of launching a kernel when a group has one rank)."""
+    of launching a kernel when a group has one rank). multicard_smoke.py's;
+    this script times no path."""
     kern = traced_kernels(fn, calls)
 
     def ms(keep):
@@ -2424,8 +2145,7 @@ def dist_frames(scene, cam, capacity, smi):
     """Path h, frames: ``render_sharded`` of the serving scene under
     ``make_mesh(1)`` and ``make_mesh_2d((1, 1))``, both redistributions
     and both band layouts, against ``render()``; the defaults' frame once;
-    frame and collective times. Returns the launches of the checked
-    frames."""
+    the collectives' times. Returns the launches of the checked frames."""
     import torch
     from splatjax_torch import kernels
     from splatjax_torch.parallel import (
@@ -2445,15 +2165,11 @@ def dist_frames(scene, cam, capacity, smi):
     with torch.no_grad():
         ref = render(scene, cam, capacity=capacity)
         pc_d = _default_pair_capacity(n, 1)
-        sync()
-        t0 = time.perf_counter()
         img, ov = render_sharded(scene, cam, mesh, return_overflow=True)
-        sync()
-        first_ms = (time.perf_counter() - t0) * 1e3
         log(f"[dist] defaults (pair_capacity {pc_d}, capacity "
-            f"{max(default_capacity(pc_d), 2048)}): first frame "
-            f"{first_ms:.1f} ms, overflow {ov.tolist()}, max |image - "
-            f"render()| {float((img - ref).abs().max()):.3g}; {smi}")
+            f"{max(default_capacity(pc_d), 2048)}): overflow {ov.tolist()}, "
+            f"max |image - render()| {float((img - ref).abs().max()):.3g}; "
+            f"{smi}")
         del img
 
         kw = dict(pair_capacity=n, capacity=capacity, return_overflow=True)
@@ -2483,31 +2199,6 @@ def dist_frames(scene, cam, capacity, smi):
         check_launches(launches, dict(
             expand=n_frames, rasterize_fwd=n_frames, rasterize_fwd16=0,
             rasterize_bwd=0), "render_sharded")
-
-        def frame():
-            return render_sharded(scene, cam, mesh, **kw)
-
-        frame_ms = []
-        for _ in range(FRAMES):
-            sync()
-            t0 = time.perf_counter()
-            frame()
-            sync()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-        median = statistics.median(frame_ms)
-        busy, nccl, dtod = collective_share(frame)
-        busy_r, _, dtod_r = collective_share(
-            lambda: render(scene, cam, capacity=capacity))
-        log(f"[dist] {FRAMES} render_sharded frames (make_mesh(1), "
-            f"all_to_all, load, pair_capacity {n}, capacity {capacity}): "
-            f"median {median:.3f} ms (all: "
-            f"{', '.join(f'{t:.3f}' for t in frame_ms)}); device busy "
-            f"{busy:.3f} ms against render()'s {busy_r:.3f} ms "
-            f"({busy / busy_r:.3f}x); NCCL kernels {nccl:.4f} ms, "
-            f"device-to-device copies {dtod:.4f} ms ({dtod / busy:.4f} of "
-            f"the busy time; render()'s {dtod_r:.4f} ms); {smi}")
-        log_profile(f"dist-profile frame, {smi}", *profile_calls(frame),
-                    median)
         group = mesh_group(mesh)
         send = torch.zeros((n, 13), device=scene.device)
         tiles = torch.zeros((-(-cam.width // 16) * -(-cam.height // 16), 8,
@@ -2575,10 +2266,10 @@ def dist_steps(scene, cam, start, target, capacity, smi):
         p = fresh()
         loss, _, _, drops = band_step(p, _optimizer(p, cfg), mv, pr, tg)
         band.append((grads(p), leaves(p), int(drops)))
-    params, hist = fit(fresh(), [cam], [target],
-                       FitConfig(steps=TRAIN_STEPS, log_every=1,
-                                 capacity=capacity),
-                       mesh=band_mesh, dp_axis="view", band_axis="band")
+    _, hist = fit(fresh(), [cam], [target],
+                  FitConfig(steps=TRAIN_STEPS, log_every=1,
+                            capacity=capacity),
+                  mesh=band_mesh, dp_axis="view", band_axis="band")
     sync()
     launches = dict(kernels.LAUNCHES)
 
@@ -2604,24 +2295,9 @@ def dist_steps(scene, cam, start, target, capacity, smi):
         raise AssertionError(f"band fit losses {losses}")
     if any(drops):
         raise AssertionError(f"band fit dropped instances: {drops}")
-    ends = [h["elapsed_s"] * 1e3 for h in hist]
-    step_ms = [b - a for a, b in zip([0.0] + ends[:-1], ends)]
-    median = statistics.median(step_ms)
     log(f"[dist] fit on the (view, band) mesh (1, 1), {TRAIN_STEPS} steps: "
         f"loss {' -> '.join(f'{x:.5f}' for x in losses)}; drops {drops}; "
-        f"step median {median:.3f} ms (all: "
-        f"{', '.join(f'{t:.3f}' for t in step_ms)}); {smi}")
-    opt = _optimizer(params, cfg)
-
-    def step():
-        return band_step(params, opt, mv, pr, tg)
-
-    busy, nccl, dtod = collective_share(step, 3)
-    log(f"[dist] band step device busy {busy:.3f} ms; NCCL kernels "
-        f"{nccl:.4f} ms, device-to-device copies {dtod:.4f} ms "
-        f"({dtod / busy:.4f} of it); {smi}")
-    log_profile(f"dist-profile step, {smi}", *profile_calls(step, 3),
-                median)
+        f"{smi}")
     return launches
 
 
@@ -2693,15 +2369,6 @@ def check_png(path, frame, what):
 
     if not np.array_equal(png_pixels(path), to_u8(frame)):
         raise AssertionError(f"{what}: {path} does not decode to its frame")
-
-
-def median_step_ms(history):
-    """Median over fit's logging intervals of the mean step time in each
-    (host clock; each record ends in a sync; densify passes included)."""
-    recs = [h for h in history if "loss" in h]
-    return statistics.median(
-        (b["elapsed_s"] - a["elapsed_s"]) / (b["step"] - a["step"]) * 1e3
-        for a, b in zip(recs, recs[1:]) if b["step"] > a["step"])
 
 
 def loss_falls(history, what):
@@ -2804,10 +2471,8 @@ def fixture_path(workdir):
     out = os.path.join(workdir, "fixture")
     sync()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     res = make_fixture.main(["--out", out])
     sync()
-    wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     require(launches, ("expand", "rasterize_fwd16", "rasterize_bwd",
                        "segreduce_bf16"), "make_fixture")
@@ -2849,8 +2514,7 @@ def fixture_path(workdir):
                                  f"{float(rt.mean())}")
     log(f"[fixture] make_fixture defaults: {res['rows']} rows frozen, final "
         f"PSNR {res['psnr']:.3f} dB (view 0), loss {first:.4f} -> "
-        f"{last:.4f}; wall {wall:.2f} s (fit {res['wall_s']:.2f} s), median "
-        f"step {median_step_ms(res['history']):.3f} ms")
+        f"{last:.4f}")
     log(f"[fixture] test_fixture.py's checks on the card: {res['rows']} > "
         f"500 rows; alpha mean {float(alpha.mean()):.4f} > 0.08, max "
         f"{float(alpha.max()):.4f} > 0.9 at {w}x{h}; .ply vs .splat max "
@@ -2865,20 +2529,14 @@ def fit_fixture_path(workdir, smi):
     steps, 256x256, 12 views, 4096 random gaussians, its DensifyConfig);
     the held-out bar (min of 2 views >= FIT_BAR_DB) and a falling loss.
     Returns the launches."""
-    import torch
     from splatjax_torch import kernels
     from splatjax_torch.examples import fit_trained_fixture
-    from splatjax_torch.render import default_capacity
-    from splatjax_torch.train import FitConfig, make_train_step
-    from splatjax_torch.train.fit import _optimizer
 
     out = os.path.join(workdir, "artifacts")
     sync()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     res = fit_trained_fixture.main(["--out-dir", out])
     sync()
-    wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     require(launches, ("expand", "rasterize_fwd16", "rasterize_bwd",
                        "segreduce_bf16"), "fit_trained_fixture")
@@ -2891,7 +2549,6 @@ def fit_fixture_path(workdir, smi):
                                   res["held_images"]):
         check_png(tp, tgt[..., :3], "fit_trained_fixture target")
         check_png(rp, img[..., :3], "fit_trained_fixture recon")
-    step_ms = median_step_ms(res["history"])
     log(f"[fit-fixture] {res['steps']} steps {res['resolution']}, "
         f"{res['views']} views, {res['init_gaussians']} random gaussians: "
         f"held-out PSNR {', '.join(f'{p:.3f}' for p in res['held_psnrs'])} "
@@ -2899,21 +2556,8 @@ def fit_fixture_path(workdir, smi):
         f"{sum(res['train_psnrs']) / len(res['train_psnrs']):.3f} dB (min "
         f"{min(res['train_psnrs']):.3f}), {res['final_live_gaussians']} live "
         f"of {res['params'].num_gaussians} rows; loss {first:.4f} -> "
-        f"{last:.4f}; fit {res['wall_s']:.2f} s, main {wall:.2f} s, median "
-        f"step {step_ms:.3f} ms; splatjax's run: {SPLATJAX_FIT}; "
-        f"record device {res['device']!r}")
-
-    # device busy of one step at the final row count, the held-out view
-    params = res["params"]
-    cfg = FitConfig()
-    cam = res["held_cameras"][0]
-    target = torch.from_numpy(res["held_targets"][0]).to(params.means.device)
-    step = make_train_step([cam], cfg,
-                           default_capacity(params.num_gaussians))
-    opt = _optimizer(params, cfg)
-    log_profile("fit-fixture-profile", *profile_calls(
-        lambda: step(params, opt, cam.modelview, cam.projection, target), 5),
-        step_ms)
+        f"{last:.4f}; splatjax's run: {SPLATJAX_FIT}; record device "
+        f"{res['device']!r}")
     log(f"[fit-fixture] launches {launches}; {smi}")
     return launches
 
@@ -2940,13 +2584,12 @@ def demos_path(splat, workdir, smi):
     def run(mod, argv):
         sync()
         kernels.reset_launches()
-        t0 = time.perf_counter()
         res = mod.main(argv)
         sync()
-        return res, dict(kernels.LAUNCHES), time.perf_counter() - t0
+        return res, dict(kernels.LAUNCHES)
 
     launches = {}
-    res, launches["demo_render"], s = run(
+    res, launches["demo_render"] = run(
         demo_render, [splat, "--out", os.path.join(workdir, "render")])
     require(launches["demo_render"], ("expand", "rasterize_fwd"),
             "demo_render")
@@ -2961,11 +2604,9 @@ def demos_path(splat, workdir, smi):
     del scene
     log(f"[demo] demo_render: {len(res['frames'])} frames "
         f"{res['frames'][0].shape[1]}x{res['frames'][0].shape[0]} of "
-        f"{res['gaussians']} splats, bit-equal to render(); frame ms "
-        f"(render + readback) {', '.join(f'{t:.3f}' for t in res['frame_ms'])}"
-        f", median {statistics.median(res['frame_ms']):.3f}; main {s:.2f} s")
+        f"{res['gaussians']} splats, bit-equal to render()")
 
-    res, launches["demo_orbit"], s = run(
+    res, launches["demo_orbit"] = run(
         demo_orbit, [splat, "--out", os.path.join(workdir, "orbit.png")])
     check_launches(launches["demo_orbit"], dict(
         rasterize_cached=24, expand=3, rasterize_fwd=0, rasterize_fwd16=0),
@@ -2973,38 +2614,33 @@ def demos_path(splat, workdir, smi):
     check_png(res["path"], res["strip"], "demo_orbit")
     h, w = res["frames"][0].shape[:2]
     log(f"[demo] demo_orbit: 24 frames {w}x{h}, resort_interval 8: "
-        f"{res['fps']:.2f} fps over frames 1-23 (render + readback); frame "
-        f"ms median {statistics.median(res['frame_ms'][1:]):.3f}, frame 0 "
-        f"{res['frame_ms'][0]:.3f}; launches K3 24, K1 3, K2 0; main "
-        f"{s:.2f} s")
+        "launches K3 24, K1 3, K2 0")
 
-    res, launches["demo_stereo"], s = run(
+    res, launches["demo_stereo"] = run(
         demo_stereo, [splat, "--out", os.path.join(workdir, "stereo.png")])
     require(launches["demo_stereo"], ("expand", "rasterize_fwd"),
             "demo_stereo")
     check_png(res["path"], res["pair"], "demo_stereo")
     log(f"[demo] demo_stereo: eye pair {res['left'].shape[1]}x"
-        f"{res['left'].shape[0]} in {res['ms']:.3f} ms; main {s:.2f} s")
+        f"{res['left'].shape[0]}")
 
-    res, launches["demo_cutout"], s = run(demo_cutout, [splat])
+    res, launches["demo_cutout"] = run(demo_cutout, [splat])
     require(launches["demo_cutout"], ("expand", "rasterize_fwd"),
             "demo_cutout")
     check_png(res["path"], res["side"], "demo_cutout")
     if not float(np.abs(res["full"] - res["clipped"]).max()) > 0:
         raise AssertionError("demo_cutout: clipped frame equals the full one")
-    log(f"[demo] demo_cutout: kept {res['kept']:.4f} of the covered pixels, "
-        f"both frames in {res['ms']:.3f} ms; main {s:.2f} s")
+    log(f"[demo] demo_cutout: kept {res['kept']:.4f} of the covered pixels")
 
-    res, launches["demo_depth_interaction"], s = run(
+    res, launches["demo_depth_interaction"] = run(
         demo_depth_interaction, ["--out", os.path.join(workdir, "depth")])
     require(launches["demo_depth_interaction"], ("expand", "rasterize_fwd"),
             "demo_depth_interaction")
     for frame, path in zip(res["frames"], res["paths"]):
         check_png(path, frame, "demo_depth_interaction")
-    log(f"[demo] demo_depth_interaction: {len(res['frames'])} frames, ms "
-        f"{', '.join(f'{t:.3f}' for t in res['frame_ms'])}; main {s:.2f} s")
+    log(f"[demo] demo_depth_interaction: {len(res['frames'])} frames")
 
-    res, launches["demo_train"], s = run(
+    res, launches["demo_train"] = run(
         demo_train, ["--out", os.path.join(workdir, "fit.splat")])
     require(launches["demo_train"], ("expand", "rasterize_fwd16",
                                      "rasterize_bwd", "segreduce_bf16"),
@@ -3013,10 +2649,9 @@ def demos_path(splat, workdir, smi):
     if not res["held_psnr"] > res["held_psnr_start"]:
         raise AssertionError(f"demo_train: held-out PSNR "
                              f"{res['held_psnr']} <= {res['held_psnr_start']}")
-    log(f"[demo] demo_train: 600 steps in {res['wall_s']:.2f} s, median step "
-        f"{median_step_ms(res['history']):.3f} ms; held-out PSNR "
+    log(f"[demo] demo_train: 600 steps, held-out PSNR "
         f"{res['held_psnr_start']:.3f} -> {res['held_psnr']:.3f} dB, loss "
-        f"{first:.4f} -> {last:.4f}; main {s:.2f} s")
+        f"{first:.4f} -> {last:.4f}")
     log(f"[demo] launches {launches}; {smi}")
     return launches
 
@@ -3143,15 +2778,20 @@ def sharded_tile_frames(scene, cam, capacity, tile, workdir):
 
 
 def traced_busy(fn, calls, want):
-    """Device busy ms per call and the top kernels (``profile_calls``), or
-    (None, []) when no trace held one ``want`` kernel a call (the profiler
-    dropped records): a busy time without them would be wrong."""
+    """Device busy ms per call of ``fn`` and its top kernels (name, ms and
+    launches per call) from torch.profiler, or (None, []) when no trace
+    held one ``want`` kernel a call (the profiler dropped records): a busy
+    time without them would be wrong. cluster_variants.py's; this script
+    times no path."""
     try:
-        busy, _, top, _ = profile_calls(fn, calls, want=want, tries=5)
+        kern = traced_kernels(fn, calls, want=want, count=calls, tries=5)
     except AssertionError as e:
         log(f"[tiles] device busy not measured: {e}")
         return None, []
-    return busy, top
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / calls,
+            [(e.key, e.self_device_time_total / 1e3 / calls,
+              e.count // calls) for e in kern[:14]])
 
 
 def ms_or_not(x):
@@ -3159,16 +2799,15 @@ def ms_or_not(x):
 
 
 def tile_edge_drive(scene, cam, start, tile):
-    """One edge of path j's main path at full size: 10 serving frames
-    through ``SplatRenderer(tile_size=tile)``, gradient steps of
-    ``render(feature_bytes=16, tile_size=tile)`` with an L1 loss and Adam,
-    and the 16-byte stale-order redraw over the orbit; host medians,
-    device busy per frame and step, the redraw's device time by CUDA
-    events. Returns the table row."""
+    """One edge of path j's main path at full size: a serving frame through
+    ``SplatRenderer(tile_size=tile)``, 3 gradient steps of
+    ``render(feature_bytes=16, tile_size=tile)`` with an L1 loss and Adam
+    (the loss must fall), and the 16-byte stale-order redraw over the
+    orbit; no overflow. Returns the table row."""
     import torch
     from splatjax_torch import SplatRenderer, make_camera
     from splatjax_torch.ops.binning import TileConfig
-    from splatjax_torch.render import render, render_binned
+    from splatjax_torch.render import render
     from splatjax_torch.train import FitConfig
     from splatjax_torch.train.fit import _optimizer
 
@@ -3178,16 +2817,7 @@ def tile_edge_drive(scene, cam, start, tile):
     img, overflow = renderer.render(cam, return_overflow=True)
     if int(overflow) != 0:
         raise AssertionError(f"overflow {int(overflow)} at {tile} px")
-    frame_ms = []
-    for _ in range(FRAMES):
-        sync()
-        t0 = time.perf_counter()
-        img = renderer.render(cam)
-        sync()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
     check_frame(img, f"serving frame at {tile} px")
-    frame_busy, frame_top = traced_busy(lambda: renderer.render(cam), 5,
-                                        "rasterize_fwd")
     del renderer, img
 
     params = noisy_start(scene)
@@ -3214,7 +2844,6 @@ def tile_edge_drive(scene, cam, start, tile):
                              return_overflow=True)
     if int(overflow) != 0:
         raise AssertionError(f"step overflow {int(overflow)} at {tile} px")
-    step_busy, step_top = traced_busy(step, 3, "rasterize_bwd")
     del params, opt, target
 
     _, capacity_e = redraw_capacity(scene, tile)
@@ -3224,37 +2853,17 @@ def tile_edge_drive(scene, cam, start, tile):
                            feature_bytes=16, tile_size=tile,
                            resort_interval=RESORT_INTERVAL,
                            alpha_clip=0.999, early_stop=1e-4)
-    redraw_ms = []
     for i, c in enumerate(eyes):
-        sync()
-        t0 = time.perf_counter()
         img = redraw.render(c)
-        sync()
-        if i % RESORT_INTERVAL == 0:
-            if int(redraw._bins.bins.overflow) != 0:
-                raise AssertionError(f"redraw overflow at {tile} px")
-        else:
-            redraw_ms.append((time.perf_counter() - t0) * 1e3)
+        if i % RESORT_INTERVAL == 0 and \
+                int(redraw._bins.bins.overflow) != 0:
+            raise AssertionError(f"redraw overflow at {tile} px")
     check_frame(img, f"redraw at {tile} px")
-    bins = redraw._bins
-    # by CUDA events: torch.profiler's traces of these sub-millisecond
-    # calls dropped K3 records on the card (2 of 5 kept, every retake)
-    redraw_dev = event_stages([("redraw", lambda _: render_binned(
-        scene, cam, bins, tile_size=tile, feature_bytes=16,
-        alpha_clip=0.999, early_stop=1e-4))])["redraw"]
     row = dict(tile=tile, tiles=cfg.num_tiles, instances=need,
-               fragments=need * cfg.pixels_per_tile,
-               frame_ms=statistics.median(frame_ms), frame_busy=frame_busy,
-               step_busy=step_busy, redraw_ms=statistics.median(redraw_ms),
-               redraw_dev=redraw_dev, losses=losses)
-    log(f"[tiles] {tile} px drive: serving median {row['frame_ms']:.3f} ms, "
-        f"busy {ms_or_not(frame_busy)} ms; L1 + Adam step (16-byte rows) "
-        f"busy {ms_or_not(step_busy)} ms, loss "
-        f"{' -> '.join(f'{x:.5f}' for x in losses)}; redraw median "
-        f"{row['redraw_ms']:.3f} ms, device {redraw_dev:.3f} ms (events)")
-    for what, top in (("frame", frame_top), ("step", step_top)):
-        log(f"[tiles] {tile} px {what} top kernels: " + "; ".join(
-            f"{ms:.4f} ms x{n} {name[:60]}" for name, ms, n in top[:3]))
+               fragments=need * cfg.pixels_per_tile)
+    log(f"[tiles] {tile} px drive: serving frame, L1 + Adam steps (16-byte "
+        f"rows) loss {' -> '.join(f'{x:.5f}' for x in losses)}, "
+        f"{len(eyes)} redraw frames")
     return row
 
 
@@ -3289,9 +2898,8 @@ def tile_path(gate_scene, gate_cam, scene, cam, start, base_rows, smi,
     require(launches, RASTERIZERS, "path j at 16 px")
     log(f"[launches] tile edges: {launches}")
     rows[16] = {n: base_rows[n] for n in RASTERIZERS}
-    log(f"[tile-table] {smi}; kernels and the redraw's device time by "
-        "CUDA events, frame and step busy by torch.profiler; K2 32-byte "
-        "and 16-byte, K3 at an orbit eye, K4 16-byte, each with its bound")
+    log(f"[tile-table] {smi}; kernels by CUDA events: K2 32-byte and "
+        "16-byte, K3 at an orbit eye, K4 16-byte, each with its bound")
     for r in table:
         k = rows[r["tile"]]
         kern = ", ".join(
@@ -3302,10 +2910,7 @@ def tile_path(gate_scene, gate_cam, scene, cam, start, base_rows, smi,
             f"{gates[r['tile']]['grad']:.3g} of max")
         log(f"[tile-table] {r['tile']:2d} px: {r['tiles']} tiles, "
             f"{r['instances']} instances, {r['fragments']} fragments; "
-            f"{kern} ms; frame median {r['frame_ms']:.3f} ms busy "
-            f"{ms_or_not(r['frame_busy'])}; step busy "
-            f"{ms_or_not(r['step_busy'])}; redraw median "
-            f"{r['redraw_ms']:.3f} device {r['redraw_dev']:.3f}{gate}")
+            f"{kern} ms{gate}")
     log(f"[tiles] path j in {time.perf_counter() - t0:.1f} s")
     return launches, {t: rows[t] for t in NEW_EDGES}
 
@@ -3326,7 +2931,6 @@ def main() -> int:
     from splatjax_torch import kernels, make_camera
     from splatjax_torch.io import load_splat, synthetic_scene, tile_scene
     from splatjax_torch.render import render
-    from splatjax_torch.train import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3375,7 +2979,6 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  seg_direct[name]["max_abs_err"],
                                  seg_long[name])
-    seg_stage_times(b_full, g32, g16)
     del g32, g16, b_full
     tail_diagnostics(scene, cam, capacity)
     parity_gate(gate_scene, gate_cam)
@@ -3389,21 +2992,15 @@ def main() -> int:
     fused_quality_gate(scene, cam, capacity_e)
 
     # -- the main paths, counts reset just before each ----------------------
-    launches_a, frame_ms, renderer = serving_path(scene, cam, capacity)
+    launches_a = serving_path(scene, cam, capacity)
     require(launches_a, ("project_fwd", "expand", "rasterize_fwd"),
             "serving")
     check_launches(launches_a, dict(project_fwd=FRAMES), "serving")
-    stages = span_stages(lambda: renderer.render(cam), FRAME_STAGES)
-    log("[stages] " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
     log(f"[launches] serving: {launches_a} over {FRAMES} frames")
-    frame_med = statistics.median(frame_ms)
-    log_profile("profile", *profile_calls(lambda: renderer.render(cam)),
-                frame_med)
 
     with torch.no_grad():
         target = render(scene, cam, capacity=capacity)
-    launches_b, step_ms, params, cfg = training_path(start, cam, target,
-                                                     capacity)
+    launches_b, params = training_path(start, cam, target, capacity)
     require(launches_b, ("project_fwd", "project_bwd", "expand",
                          "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "training")
@@ -3416,22 +3013,7 @@ def main() -> int:
     require(launches_d, ("rasterize_bwd", "segreduce_rows"),
             "32-byte f32-gather step")
 
-    from splatjax_torch.train.fit import _optimizer
-
-    opt = _optimizer(params, cfg)
-    step = make_train_step([cam], cfg, capacity)
-    tstages = span_stages(
-        lambda: step(params, opt, cam.modelview, cam.projection, target),
-        STEP_STAGES, 3)
-    log("[train-stages] " + ", ".join(f"{k} {v:.3f} ms"
-                                      for k, v in tstages.items())
-        + f"; sum {sum(tstages[k] for k in STEP_STAGES):.3f} ms")
-    log_profile("train-profile", *profile_calls(
-        lambda: step(params, opt, cam.modelview, cam.projection, target), 3),
-        statistics.median(step_ms))
-
-    launches_e, redraw_ms, rebuild_ms, redraw_renderer = redraw_path(
-        scene, capacity_e)
+    launches_e = redraw_path(scene, capacity_e)
     require(launches_e, ("expand", "rasterize_cached"), "redraw")
     want = dict(rasterize_cached=len(ORBIT) * REDRAW_LAPS,
                 expand=REDRAW_LAPS, project_fwd=REDRAW_LAPS,
@@ -3443,16 +3025,6 @@ def main() -> int:
     log(f"[k3] kernel {k3['ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
         f"({k3['bound_by']}), plain {k3['plain_ms']:.4f} ms; "
         f"{launches_e['rasterize_cached']} launches in the redraw path")
-    redraw_med = statistics.median(redraw_ms)
-    log(f"[redraw] median redraw frame {redraw_med:.3f} ms vs the exact "
-        f"path's median frame {frame_med:.3f} ms (path a)")
-    from splatjax_torch.render import render_binned
-
-    stale_bins = redraw_renderer._bins
-    log_profile("redraw-profile", *profile_calls(lambda: render_binned(
-        scene, cam, stale_bins, feature_bytes=16, alpha_clip=0.999,
-        early_stop=1e-4)), redraw_med)
-    del redraw_renderer, stale_bins
     launches_f = redraw32_path(scene, cam, capacity_e)
     require(launches_f, ("expand", "rasterize_fwd"), "32-byte redraw")
     if launches_f["rasterize_cached"] != 0:

@@ -320,10 +320,18 @@ class _Setup:
     sh_eval: bool              # sh given: the color is eval_sh's
 
 
+def _cov6(cov3d: torch.Tensor, viewer_exact: bool) -> torch.Tensor:
+    """(N, 6) upper triangles of the covariances ``cov3d``, through the
+    viewer's int16 round trip under ``viewer_exact``."""
+    cov6 = covariance_upper(cov3d)
+    if viewer_exact:
+        cov6 = dequantize_covariances_int16(*quantize_covariances_int16(cov6))
+    return cov6
+
+
 def _viewer_cov(cov3d: torch.Tensor) -> torch.Tensor:
-    """The viewer's int16 round trip of the covariances' upper triangles."""
-    return cov6_to_mat(dequantize_covariances_int16(
-        *quantize_covariances_int16(covariance_upper(cov3d))))
+    """The viewer's int16 round trip of the covariances ``cov3d``."""
+    return cov6_to_mat(_cov6(cov3d, True))
 
 
 def project_params(

@@ -35,28 +35,27 @@ from splatjax_torch.ops.binning import (
     bin_gaussians,
     features_from_projection,
 )
-from splatjax_torch.ops.projection import ProjectedGaussians, project_params
+from splatjax_torch.ops.projection import (
+    ProjectedGaussians,
+    _cov6,
+    project_params,
+)
 from splatjax_torch.ops.rasterize import (
     _rasterize_cached_fwd,
     _rasterize_fwd,
     cached_camera,
-    pack_cached_rows,
+    gather_cached_rows,
     pack_table,
     tiles_to_depth,
     tiles_to_image,
+    unpack_cached_rows,
     zbuffer_to_tiles,
 )
 from splatjax_torch.ops.rasterize_vjp import (
     rasterize_gathered,
     render_image_gathered,
 )
-from splatjax_torch.scene import (
-    GaussianScene,
-    build_covariances,
-    covariance_upper,
-    dequantize_covariances_int16,
-    quantize_covariances_int16,
-)
+from splatjax_torch.scene import GaussianScene, build_covariances
 
 # Clamp that keeps 1/(1 - alpha) bounded for the backward; "auto" resolves
 # to it except in viewer_exact mode, which keeps the WebGL blend exact.
@@ -97,15 +96,6 @@ def resolve_feature_bytes(feature_bytes, viewer_exact: bool) -> int:
             "feature_bytes=16 is not a parity mode; use 32 with viewer_exact"
         )
     return fb
-
-
-def _cov6(scene: GaussianScene, viewer_exact: bool) -> torch.Tensor:
-    """(N, 6) covariance upper triangles, through the viewer's int16
-    quantization under ``viewer_exact``."""
-    cov6 = covariance_upper(build_covariances(scene.quats, scene.scales))
-    if viewer_exact:
-        cov6 = dequantize_covariances_int16(*quantize_covariances_int16(cov6))
-    return cov6
 
 
 def _project_scene(scene: GaussianScene, modelview, projection, width,
@@ -327,7 +317,8 @@ class CachedBins(NamedTuple):
     instance in its order, gathered once per resort
     (``bin_scene(cache_params=True)``). A redraw projects these directly,
     with no per-frame gather; a 16-byte redraw is one kernel (K3) on
-    ``prm``, its tiles taken in ``bins.order``."""
+    ``prm``, its tiles taken in ``bins.order``. The five parameter fields
+    are column views of ``prm`` (``unpack_cached_rows``)."""
 
     bins: BinnedInstances
     means: torch.Tensor                # (K, 3)
@@ -344,11 +335,12 @@ def _gather_param_cache(scene: GaussianScene, bins: BinnedInstances,
     with trace.span("sj.gather"):
         gid = bins.gauss_id.long()
         trace.count(rows=gid.shape[0])
-        params = [t.index_select(0, gid) for t in (
-            scene.means, _cov6(scene, viewer_exact), scene.colors,
-            scene.opacities, scene.scales.amax(dim=-1))]
+        prm = gather_cached_rows(
+            gid, scene.means,
+            _cov6(build_covariances(scene.quats, scene.scales), viewer_exact),
+            scene.colors, scene.opacities, scene.scales.amax(dim=-1))
         sh = None if scene.sh is None else scene.sh.index_select(0, gid)
-        return CachedBins(bins, *params, sh, pack_cached_rows(*params))
+        return CachedBins(bins, *unpack_cached_rows(prm), sh, prm)
 
 
 def bin_scene(
@@ -365,9 +357,9 @@ def bin_scene(
     """Build the tile index of a (scene, view) pair for
     :func:`render_binned`: the port's ``BinnedInstances``, or with
     ``cache_params=True`` a :class:`CachedBins` that also holds every
-    instance's camera-independent parameters (about 120 B per instance).
-    ``tile_size`` as :func:`render`; draw the bins with the same edge. Not
-    differentiable (an index)."""
+    instance's camera-independent parameters (64 B per instance, plus 12 B
+    per SH band). ``tile_size`` as :func:`render`; draw the bins with the
+    same edge. Not differentiable (an index)."""
     cfg = TileConfig(camera.width, camera.height, tile_size, tile_size)
     dev = scene.device
     if capacity is None:

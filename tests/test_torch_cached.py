@@ -212,6 +212,60 @@ def test_render_binned_matches_splatjax(setup, kind, eye):
         np.testing.assert_allclose(got, full, rtol=0, atol=TOL)
 
 
+def _cutout():
+    box = np.eye(4, dtype=np.float32)
+    box[:3, 3] = [0.2, 0.0, 0.1]
+    return np.linalg.inv(box).astype(np.float32)
+
+
+# the cached branches past K3: name -> (SH bands, bin_scene and
+# render_binned keyword arguments)
+CACHED_BRANCHES = {
+    "sh": (3, {}),
+    "cutout": (0, dict(cutout=_cutout())),
+    "viewer_exact": (0, dict(viewer_exact=True)),
+}
+
+
+@pytest.mark.parametrize("eye", ["bin_camera", "moved"])
+@pytest.mark.parametrize("branch", sorted(CACHED_BRANCHES))
+def test_render_binned_cached_branches_match_splatjax(branch, eye):
+    """CachedBins drawn through the projection, pack and K2 (no K3): with
+    SH bands, a cutout or viewer_exact, at 32-byte rows, against
+    splatjax's render_binned on its own CachedBins."""
+    bands, kw = CACHED_BRANCHES[branch]
+    p = _params()
+    if bands:
+        rng = np.random.default_rng(32)
+        p["sh"] = (rng.normal(size=(len(p["means"]), bands, 3))
+                   * 0.2).astype(np.float32)
+    jscene = JScene(**{k: jnp.asarray(v) for k, v in p.items()})
+    tscene = st.scene_from_numpy(p, device="cpu")
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    cj, ct = _cams(BIN_EYE)
+    jbins = j_bin_scene(jscene, cj, cache_params=True, **jkw)
+    tbins = st.bin_scene(tscene, ct, cache_params=True, **kw)
+    assert (tbins.sh is None) == (bands == 0)
+    cj, ct = _cams(EYES[eye])
+    want = np.asarray(j_render_binned(jscene, cj, jbins, **jkw))
+    got = st.render_binned(tscene, ct, tbins, **kw).numpy()
+    assert got.shape == want.shape == (H, W, 4)
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+def test_cached_bins_fields_are_views_of_prm(setup):
+    """CachedBins stores its parameters once: the five fields share
+    ``prm``'s storage and are its ``pack_cached_rows`` columns."""
+    tc = setup["tcached"]
+    fields = (tc.means, tc.cov6, tc.colors, tc.opacities, tc.max_scales)
+    for f in fields:
+        assert f.untyped_storage().data_ptr() == \
+            tc.prm.untyped_storage().data_ptr()
+    assert torch.equal(tr.pack_cached_rows(*fields), tc.prm)
+
+
 def test_stale_bins_behind_the_eye_stay_finite(setup):
     _, ct = _cams(EYES["behind"])
     tc = setup["tcached"]
