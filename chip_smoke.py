@@ -14,7 +14,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      3x the plain backward's own distance from autograd through the plain
      composition plus 1e-5 of that leaf's largest |gradient|; each
      kernel's time by CUDA events beside its byte bound and the plain
-     versions';
+     versions'; then the row pack and gather (``pack_gather_rows``)
+     against its plain version (the table pack and torch's gather) bit
+     for bit, both layouts, at those two shapes over their tile lists and
+     on non-finite features; its time in each cell's layout beside its
+     byte bound, the plain version's and torch's gather alone;
   2. K1 (expansion) against its plain version on the full-width frame and
      on edge cases (a long row of empty gaussians, screen-filling ones,
      capacity above and below the total, a long tail of gaussians at
@@ -64,16 +68,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  10. the main paths, each with the launch counts reset just before and read
      just after:
      a. serving: the trained fixture tiled to 1M splats, 1920x1080 from eye
-        (0, 0, 2.8), 10 frames through ``SplatRenderer`` (K1, K2);
+        (0, 0, 2.8), 10 frames through ``SplatRenderer`` (K1, K2, one row
+        pack a K2);
      b. training: ``fit()`` 6 Adam steps from that scene with seeded noise
         on colors and opacities towards its 32-byte render, FitConfig
-        defaults (16-byte rows; K1, K2, K4, K7); the loss must fall;
+        defaults (16-byte rows; K1, K2, K4, K7, one 16-byte row pack a
+        K2); the loss must fall;
      c. one 32-byte gradient step (K6), and one under
-        SPLATJAX_GRAD_GATHER=f32 (K5);
+        SPLATJAX_GRAD_GATHER=f32 (K5), one row pack each;
      d. the stale-order redraw: ``SplatRenderer(feature_bytes=16,
         resort_interval=8)`` over splatjax bench.py's orbit (eyes
         (0.02 sin t, 0.02 cos t, 2.8), 8 t over [0, 2 pi)), two laps = 16
-        frames: 16 K3 launches, 2 K1 (one per rebuilt index), no K2;
+        frames: 16 K3 launches, 2 K1 (one per rebuilt index), no K2, no
+        row pack;
      e. the same renderer with 32-byte rows, 8 frames at the unchanged
         camera: K2 and no K3, within 1e-4 of ``render()``;
      f. assets: the 1M-splat scene written by ``save_ply`` and as .splat
@@ -98,11 +105,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
         serving scene under ``make_mesh(1)`` and ``make_mesh_2d((1, 1))``,
         all_to_all and all_gather, load-balanced and equal bands, at
         pair_capacity = N, each within 1e-4 of ``render()`` with overflow
-        0 (8 frames: exactly 8 K1 and 8 K2 launches), and the defaults'
-        frame once (pair_capacity 6N); ``fit(mesh=make_mesh(1))`` one step
-        within the gradient gate of ``make_train_step``'s; the (view,
-        band) step twice from one start, within the gate and compared
-        bit for bit; ``fit`` on ``make_mesh_2d((1, 1), ("view",
+        0 (8 frames: exactly 8 K1, 8 row pack and 8 K2 launches), and the
+        defaults' frame once (pair_capacity 6N); ``fit(mesh=make_mesh(1))``
+        one step within the gradient gate of ``make_train_step``'s; the
+        (view, band) step twice from one start, within the gate and
+        compared bit for bit; ``fit`` on ``make_mesh_2d((1, 1), ("view",
         "band"))`` 6 steps: the loss falls, drops 0 (K1, K2 16-byte, K4,
         K7); the collectives alone by CUDA events;
      i. tooling and examples, in the same ``build/`` directory after path
@@ -343,7 +350,7 @@ def binned_rows(scene, cam, capacity, early_stop, packed16=False, tile=16):
     from splatjax_torch.ops.binning import (
         TileConfig, bin_gaussians, features_from_projection,
     )
-    from splatjax_torch.ops.rasterize import gather_rows, pack_table
+    from splatjax_torch.ops.rasterize import pack_gather_rows
 
     import torch
 
@@ -353,8 +360,8 @@ def binned_rows(scene, cam, capacity, early_stop, packed16=False, tile=16):
         b = bin_gaussians(proj, cfg, capacity)
         if int(b.overflow) != 0:
             raise AssertionError(f"overflow {int(b.overflow)} at {capacity}")
-        rows = gather_rows(pack_table(features_from_projection(proj),
-                                      packed16), b.gauss_id)
+        rows = pack_gather_rows(features_from_projection(proj), b.gauss_id,
+                                packed16)
     return cfg, b, rows
 
 
@@ -555,6 +562,115 @@ def check_projection():
             max(v[0] for v in worst.values()))
         del scene, pk, pp, lv
         torch.cuda.empty_cache()
+    return rows
+
+
+PACK_CASES = ((1_000_000, 0, 1920, 1080, False), (3_000_000, 15, 1237, 822,
+                                                  True))
+
+
+def pack_nonfinite(device, n=4096, k=12_000, seed=7):
+    """Features holding NaN (both signs), +-inf, values below 0 and above
+    1, means off the 16-bit range and on its quantization half-steps, and
+    ids with a zero-filled tail, as the binning's unused slots hold."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    feat = torch.rand((n, 16), generator=g)
+    feat[:, :2] = feat[:, :2] * 3000.0 - 500.0
+    specials = torch.tensor([float("nan"), -float("nan"), float("inf"),
+                             -float("inf"), -0.3, 1.7, 1e9, -1e9, -0.0,
+                             0.5 / 65535.0, 1.5 / 255.0, -2048.0 + 0.0625,
+                             6143.9375, 1e-40])
+    pick = torch.randint(0, specials.numel(), (n // 2, 10), generator=g)
+    feat[: n // 2, :10] = specials[pick]
+    gid = torch.randint(0, n, (k,), generator=g, dtype=torch.int32)
+    gid[k - 1000:] = 0
+    return feat.to(device), gid.to(device)
+
+
+def check_pack_rows():
+    """pack_gather_rows' kernel against its plain version (the table pack
+    and torch's gather, on the card) bit for bit, in both layouts: at the
+    jump frame's shape (1M splats, SH 0, 1920x1080) and the fit step's (3M,
+    SH 3, 1237x822), over the tile lists binning builds there, and on
+    non-finite features (:func:`pack_nonfinite`). Times the kernel in the
+    cell's layout by CUDA events beside its byte bound (each instance's id,
+    the two 32-byte sectors of its feature row and its 32-byte row once),
+    the plain version and torch's gather alone on the packed table."""
+    import torch
+    from splatjax_torch import kernels, make_camera
+    from splatjax_torch.ops import projection as P
+    from splatjax_torch.ops.binning import TileConfig, features_from_projection
+    from splatjax_torch.ops.rasterize import (
+        gather_rows, pack_gather_rows, pack_gather_rows_plain, pack_table,
+    )
+
+    def compare(feat, gid, packed16, what):
+        kernels.reset_launches()
+        got = pack_gather_rows(feat, gid, packed16)
+        sync()
+        counter = "pack_rows16" if packed16 else "pack_rows"
+        if kernels.LAUNCHES[counter] != 1:
+            raise AssertionError(f"[pack] {what}: {counter} launches "
+                                 f"{kernels.LAUNCHES[counter]}")
+        want = pack_gather_rows_plain(feat, gid, packed16)
+        bad = (got != want).any(-1)
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0])
+            raise AssertionError(
+                f"[pack] {what}: {int(bad.sum())} of {gid.numel()} rows "
+                f"differ; row {i} (gaussian {int(gid[i])}, features "
+                f"{feat[int(gid[i]), :10].tolist()}): kernel "
+                f"{[hex(v & 0xFFFFFFFF) for v in got[i].tolist()]}, plain "
+                f"{[hex(v & 0xFFFFFFFF) for v in want[i].tolist()]}")
+        return got
+
+    rows = {}
+    with torch.no_grad():
+        feat, gid = pack_nonfinite(torch.device("cuda"))
+        for packed16 in (False, True):
+            got = compare(feat, gid, packed16, f"non-finite features, "
+                          f"{16 if packed16 else 32}-byte rows")
+            nan_row = int(feat[gid.long(), 5].isnan().nonzero()[0])
+            log(f"[pack] non-finite features, {16 if packed16 else 32}-byte"
+                f" rows: {gid.numel()} rows bit-equal; a row whose red is "
+                f"NaN: {[hex(v & 0xFFFFFFFF) for v in got[nan_row].tolist()]}")
+        for n, bands, w, h, cell16 in PACK_CASES:
+            what = f"{n} splats, SH bands {bands}, {w}x{h}"
+            scene = projection_inputs(n, bands)
+            cam = make_camera(EYE, (0, 0, 0), width=w, height=h)
+            proj = P.project_params(
+                scene.means, scene.colors, scene.opacities, cam.modelview,
+                cam.projection, w, h, quats=scene.quats, scales=scene.scales,
+                sh=scene.sh, support_eps=1e-4)
+            b = bins_of(proj, TileConfig(w, h, 16, 16))
+            feat = features_from_projection(proj)
+            gid = b.gauss_id
+            k = gid.numel()
+            for packed16 in (False, True):
+                compare(feat, gid, packed16,
+                        f"{what}, {16 if packed16 else 32}-byte rows")
+            counter = "pack_rows16" if cell16 else "pack_rows"
+            ms, note = kernel_ms(lambda: pack_gather_rows(feat, gid, cell16),
+                                 20, ("pack_rows", "splat_pack_rows"))
+            plain_ms = cuda_ms(
+                lambda: pack_gather_rows_plain(feat, gid, cell16), 5)
+            table = pack_table(feat, cell16)
+            library_ms = cuda_ms(lambda: gather_rows(table, gid), 5)
+            nbytes = k * (4 + 64 + 32)
+            bound_ms, by = bound(nbytes, 0)
+            log(f"[pack] {what}: {k} rows ({int(b.num_instances)} "
+                f"instances) bit-equal in both layouts; {counter} "
+                f"{ms:.4f} ms ({note}), bound {bound_ms:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of it;"
+                f" plain (table pack + gather) {plain_ms:.4f} ms; torch's "
+                f"gather of the packed table alone {library_ms:.4f} ms")
+            rows[counter] = dict(ms=ms, bound_ms=bound_ms, bound_by=by,
+                                 plain_ms=plain_ms, library_ms=library_ms,
+                                 max_abs_err=0.0)
+            del scene, proj, b, feat, gid, table
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1183,14 +1299,14 @@ def tail_diagnostics(scene, cam, capacity, tile=16):
     import torch
     from splatjax_torch.ops.binning import features_from_projection
     from splatjax_torch.ops.rasterize import (
-        gather_rows, pack_table, rasterize_cached_fwd, rasterize_fwd,
+        pack_gather_rows, rasterize_cached_fwd, rasterize_fwd,
     )
     from splatjax_torch.ops.rasterize_vjp import rasterize_bwd
 
     cfg, b, rows = binned_rows(scene, cam, capacity, 1e-4, tile=tile)
     with torch.no_grad():
-        rows16 = gather_rows(pack_table(features_from_projection(
-            projected(scene, cam, 1e-4)), True), b.gauss_id)
+        rows16 = pack_gather_rows(features_from_projection(
+            projected(scene, cam, 1e-4)), b.gauss_id, True)
     fwd = dict(alpha_clip=0.999, early_stop=1e-4)
     walked = walked_per_tile(b, rasterize_fwd(rows, b.starts, b.ends, cfg,
                                               **fwd)).double()
@@ -2197,8 +2313,8 @@ def dist_frames(scene, cam, capacity, smi):
         del checked
         n_frames = 2 * 2 * 2
         check_launches(launches, dict(
-            expand=n_frames, rasterize_fwd=n_frames, rasterize_fwd16=0,
-            rasterize_bwd=0), "render_sharded")
+            expand=n_frames, pack_rows=n_frames, rasterize_fwd=n_frames,
+            rasterize_fwd16=0, rasterize_bwd=0), "render_sharded")
         group = mesh_group(mesh)
         send = torch.zeros((n, 13), device=scene.device)
         tiles = torch.zeros((-(-cam.width // 16) * -(-cam.height // 16), 8,
@@ -2609,8 +2725,8 @@ def demos_path(splat, workdir, smi):
     res, launches["demo_orbit"] = run(
         demo_orbit, [splat, "--out", os.path.join(workdir, "orbit.png")])
     check_launches(launches["demo_orbit"], dict(
-        rasterize_cached=24, expand=3, rasterize_fwd=0, rasterize_fwd16=0),
-        "demo_orbit")
+        rasterize_cached=24, expand=3, rasterize_fwd=0, rasterize_fwd16=0,
+        pack_rows=0, pack_rows16=0), "demo_orbit")
     check_png(res["path"], res["strip"], "demo_orbit")
     h, w = res["frames"][0].shape[:2]
     log(f"[demo] demo_orbit: 24 frames {w}x{h}, resort_interval 8: "
@@ -2959,6 +3075,7 @@ def main() -> int:
         f"{capacity} ({time.perf_counter() - t0:.1f} s)")
 
     proj_rows = check_projection()
+    pack_rows = check_pack_rows()
     k1 = check_k1(scene, cam, capacity)
     check_k1_edges(scene.device)
     k2_err = check_k2_small(gate_scene, gate_cam, False)
@@ -2993,31 +3110,40 @@ def main() -> int:
 
     # -- the main paths, counts reset just before each ----------------------
     launches_a = serving_path(scene, cam, capacity)
-    require(launches_a, ("project_fwd", "expand", "rasterize_fwd"),
-            "serving")
-    check_launches(launches_a, dict(project_fwd=FRAMES), "serving")
+    require(launches_a, ("project_fwd", "expand", "pack_rows",
+                         "rasterize_fwd"), "serving")
+    check_launches(launches_a, dict(
+        project_fwd=FRAMES, pack_rows=launches_a["rasterize_fwd"],
+        pack_rows16=0), "serving")
     log(f"[launches] serving: {launches_a} over {FRAMES} frames")
 
     with torch.no_grad():
         target = render(scene, cam, capacity=capacity)
     launches_b, params = training_path(start, cam, target, capacity)
     require(launches_b, ("project_fwd", "project_bwd", "expand",
-                         "rasterize_fwd16", "rasterize_bwd",
+                         "pack_rows16", "rasterize_fwd16", "rasterize_bwd",
                          "segreduce_bf16"), "training")
-    check_launches(launches_b, dict(project_bwd=TRAIN_STEPS), "training")
+    check_launches(launches_b, dict(
+        project_bwd=TRAIN_STEPS, pack_rows16=launches_b["rasterize_fwd16"],
+        pack_rows=0), "training")
     log(f"[launches] training: {launches_b} over {TRAIN_STEPS} steps")
     launches_c = gradient_step_path(params, cam, target, capacity, "i16")
     require(launches_c, ("expand", "rasterize_fwd", "rasterize_bwd",
                          "segreduce_u16"), "32-byte step")
+    check_launches(launches_c, dict(pack_rows=1, pack_rows16=0),
+                   "32-byte step")
     launches_d = gradient_step_path(params, cam, target, capacity, "f32")
     require(launches_d, ("rasterize_bwd", "segreduce_rows"),
             "32-byte f32-gather step")
+    check_launches(launches_d, dict(pack_rows=1, pack_rows16=0),
+                   "32-byte f32-gather step")
 
     launches_e = redraw_path(scene, capacity_e)
     require(launches_e, ("expand", "rasterize_cached"), "redraw")
     want = dict(rasterize_cached=len(ORBIT) * REDRAW_LAPS,
                 expand=REDRAW_LAPS, project_fwd=REDRAW_LAPS,
-                rasterize_fwd16=0, rasterize_fwd=0)
+                rasterize_fwd16=0, rasterize_fwd=0, pack_rows=0,
+                pack_rows16=0)
     if any(launches_e[k] != v for k, v in want.items()):
         raise AssertionError(f"redraw launches {launches_e}, want {want}")
     log(f"[launches] redraw: {launches_e} over "
@@ -3039,7 +3165,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"),
                                      prefix="chip_smoke_") as workdir:
         launches_g = asset_path(scene, cam, smi, workdir)
-        require(launches_g, ("expand", "rasterize_fwd"), "asset")
+        require(launches_g, ("expand", "pack_rows", "rasterize_fwd"),
+                "asset")
         launches_h, grown = densify_path(noisy_start(scene), cam, target,
                                          workdir)
         launches_i, launches_j = dist_path(scene, cam, noisy_start(scene),
@@ -3050,10 +3177,12 @@ def main() -> int:
         launches_tiles, tile_rows = tile_path(
             gate_scene, gate_cam, scene, cam, noisy_start(scene), base_rows,
             smi, workdir)
-    require(launches_h, ("expand", "rasterize_fwd16", "rasterize_bwd",
-                         "segreduce_bf16"), "densify + checkpoint")
-    require(launches_j, ("expand", "rasterize_fwd16", "rasterize_bwd",
-                         "segreduce_bf16"), "multi-card steps")
+    require(launches_h, ("expand", "pack_rows16", "rasterize_fwd16",
+                         "rasterize_bwd", "segreduce_bf16"),
+            "densify + checkpoint")
+    require(launches_j, ("expand", "pack_rows16", "rasterize_fwd16",
+                         "rasterize_bwd", "segreduce_bf16"),
+            "multi-card steps")
     log(f"[launches] asset: {launches_g}; densify + checkpoint: "
         f"{launches_h}; sharded frames: {launches_i}; multi-card steps: "
         f"{launches_j}")
@@ -3109,6 +3238,12 @@ def main() -> int:
         dict(name="project_bwd", route="cuda", source=csrc + "project.cu",
              replaces=None, launches=total["project_bwd"], library_ms=None,
              **proj_rows["project_bwd"]),
+        dict(name="pack_gather_rows", route="cuda",
+             source=csrc + "pack_rows.cu", replaces=None,
+             launches=total["pack_rows"], **pack_rows["pack_rows"]),
+        dict(name="pack_gather_rows16", route="cuda",
+             source=csrc + "pack_rows.cu", replaces=None,
+             launches=total["pack_rows16"], **pack_rows["pack_rows16"]),
     ]
     sources = {"rasterize_fwd": ("rasterize_fwd", "rasterize_fwd.cu",
                                  "rasterize.py:678"),

@@ -35,6 +35,7 @@ SOURCES = {
     "rasterize_bwd": "rasterize_bwd.cu",
     "segreduce": "segreduce.cu",
     "project": "project.cu",
+    "pack_rows": "pack_rows.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,11 +52,12 @@ _TILED = ("rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
 
 # counter -> launches: K1, K2 (32-byte rows), K2 (16-byte rows), K3, K4,
 # K5, K6, K7 (K2, K3 and K4 at the default tile edge), the projection and
-# its backward, then K2, K3 and K4 at each other edge as "<counter>@<edge>"
+# its backward, the row pack and gather (32- and 16-byte rows), then K2, K3
+# and K4 at each other edge as "<counter>@<edge>"
 LAUNCHES = {name: 0 for name in (
     "expand", "rasterize_fwd", "rasterize_fwd16", "rasterize_cached",
     "rasterize_bwd", "segreduce_rows", "segreduce_u16", "segreduce_bf16",
-    "project_fwd", "project_bwd",
+    "project_fwd", "project_bwd", "pack_rows", "pack_rows16",
     *(f"{n}@{t}" for t in TILE_EDGES if t != DEFAULT_TILE for n in _TILED),
 )}
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from splatjax_torch import kernels
-from splatjax_torch.ops.binning import TileConfig, tile_order
+from splatjax_torch.ops.binning import FEAT_DIM, TileConfig, tile_order
 from splatjax_torch.ops.projection import (
     FRUSTUM_GUARD,
     SIZE_CULL_THRESHOLD,
@@ -174,6 +174,54 @@ def decode_rows(rows: torch.Tensor, packed16: bool = False
 def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     """Per-instance rows in tile order: (K, 8) int32, instance-major."""
     return table.index_select(0, gid.long())
+
+
+_PACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p]
+
+
+def pack_gather_rows(feat_n: torch.Tensor, gid: torch.Tensor,
+                     packed16: bool = False) -> torch.Tensor:
+    """Packed (K, 8) int32 rows of the instances ``gid`` ((K,) int32 in
+    [0, N)) from the (N, 16) f32 features, in either layout: bit-equal to
+    ``gather_rows(pack_table(feat_n, packed16), gid)``. CPU tensors take
+    that composition (:func:`pack_gather_rows_plain`); CUDA tensors launch
+    one kernel (``csrc/pack_rows.cu``) that reads each instance's feature
+    row through its id, so neither the (N, 8) table nor an int64 copy of
+    the ids is made."""
+    dev = feat_n.device
+    if feat_n.dim() != 2 or feat_n.shape[1] != FEAT_DIM:
+        raise ValueError(f"feat_n must have shape (N, {FEAT_DIM}), got "
+                         f"{tuple(feat_n.shape)}")
+    if gid.dim() != 1:
+        raise ValueError(f"gid must have shape (K,), got {tuple(gid.shape)}")
+    kernels.check_tensor(feat_n, "feat_n", torch.float32, dev)
+    kernels.check_tensor(gid, "gid", torch.int32, dev)
+    n, k = feat_n.shape[0], gid.shape[0]
+    if n == 0 and k:
+        raise ValueError(f"{k} instances of no gaussian")
+    if dev.type == "cpu":
+        return pack_gather_rows_plain(feat_n, gid, packed16)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if feat_n.data_ptr() % 16:
+        raise ValueError("feat_n must be 16-byte aligned")
+    rows = torch.empty((k, PACKED_ROWS), dtype=torch.int32, device=dev)
+    if k:
+        fn = kernels.function("pack_rows", "splat_pack_rows", _PACK_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(feat_n.data_ptr(), n, gid.data_ptr(), k, int(packed16),
+                     rows.data_ptr(), kernels.stream_of(dev))
+        kernels.check_launch("pack_rows16" if packed16 else "pack_rows", err)
+    return rows
+
+
+def pack_gather_rows_plain(feat_n: torch.Tensor, gid: torch.Tensor,
+                           packed16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pack_gather_rows`: the table of all
+    N rows, then the gather."""
+    return gather_rows(pack_table(feat_n, packed16), gid)
 
 
 def clip_bounds_alpha(alpha_clip) -> bool:

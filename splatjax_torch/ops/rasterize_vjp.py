@@ -51,10 +51,9 @@ from splatjax_torch.ops.rasterize import (
     clip_bounds_alpha,
     decode_rows,
     fragment_power,
-    gather_rows,
     log_clip,
     pack_feature_rows,
-    pack_table,
+    pack_gather_rows,
     pixel_coords,
     tiles_to_image,
 )
@@ -305,7 +304,7 @@ def _grad_rows_to_gaussians(g_rows, b: BinnedInstances):
 def _gathered_rows(feat_n, gid, packed16):
     with trace.span("sj.gather"):
         trace.count(rows=gid.shape[0])
-        return gather_rows(pack_table(feat_n.detach(), packed16), gid)
+        return pack_gather_rows(feat_n.detach(), gid, packed16)
 
 
 class _RasterizeTiles(torch.autograd.Function):

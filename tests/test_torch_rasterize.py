@@ -98,6 +98,79 @@ def test_pack_and_gather_bit_equal(binned):
     np.testing.assert_array_equal(rows, want[binned["gid"]])
 
 
+def _special_features(feat_n, nan_lanes, nan=(np.nan, -np.nan), seed=4):
+    """The frame's features with lanes 0-9 of half the gaussians drawn from
+    values the quantizers clamp, saturate or round at a half step, and the
+    NaNs ``nan`` in ``nan_lanes``; the rest keep the frame's values."""
+    feat = feat_n.copy()
+    rng = np.random.default_rng(seed)
+    specials = np.array([np.inf, -np.inf, -0.3, 1.7, 1e9, -1e9, -0.0,
+                         0.5 / 65535.0, 1.5 / 255.0, -2048.0 + 0.0625,
+                         6143.9375, 1e-40], np.float32)
+    half = feat.shape[0] // 2
+    feat[:half, :10] = rng.choice(specials, size=(half, 10))
+    nan = np.array(nan, np.float32)
+    for lane in nan_lanes:
+        rows = rng.choice(half, size=half // 8, replace=False)
+        feat[rows, lane] = rng.choice(nan, size=rows.size)
+    return feat
+
+
+def _gid_with_padding(gid, pad=300):
+    """The frame's ids with a zero-filled tail, as the binning's unused
+    slots hold."""
+    return np.concatenate([gid, np.zeros(pad, np.int32)])
+
+
+@pytest.mark.parametrize("packed16", [False, True])
+def test_pack_gather_rows_equals_table_pack_and_gather(binned, packed16):
+    """On CPU tensors the wrapper is the plain composition, bit for bit,
+    NaN in every lane included."""
+    feat = _t(_special_features(binned["feat_n"], range(10)))
+    gid = _t(_gid_with_padding(binned["gid"]))
+    got = tr.pack_gather_rows(feat, gid, packed16)
+    assert got.dtype == torch.int32 and got.shape == (gid.shape[0], 8)
+    want = tr.gather_rows(tr.pack_table(feat, packed16), gid)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("packed16", [False, True])
+def test_pack_gather_rows_matches_splatjax(binned, packed16):
+    """The rows of splatjax's table pack through ``gather_chunk_major``, in
+    instance-major order. NaN sits only in the lanes no int32 conversion
+    reads (conic, depth), where torch's CPU cast gives INT_MIN and XLA's 0,
+    and only with its sign clear, which XLA's bf16 rounding keeps and
+    torch's CPU one does not."""
+    feat = _special_features(binned["feat_n"], (2, 3, 4, 9), nan=(np.nan,))
+    gid = _gid_with_padding(binned["gid"])
+    pack = jr.pack_feature_table16 if packed16 else jr.pack_feature_table
+    cm = np.asarray(jr.gather_chunk_major(pack(jnp.asarray(feat)),
+                                          jnp.asarray(gid)))
+    want = cm.transpose(0, 2, 1).reshape(-1, 8)[: gid.shape[0]]
+    got = tr.pack_gather_rows(_t(feat), _t(gid), packed16).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+PACK_REJECTS = {
+    "feat_f64": (lambda f, g: (f.double(), g), "feat_n has dtype"),
+    "gid_i64": (lambda f, g: (f, g.long()), "gid has dtype"),
+    "width_10": (lambda f, g: (f[:, :10].contiguous(), g), r"\(N, 16\)"),
+    "feat_strided": (lambda f, g: (torch.cat([f, f], 1)[:, ::2], g),
+                     "contiguous"),
+    "gid_2d": (lambda f, g: (f, g[:, None]), r"\(K,\)"),
+    "meta": (lambda f, g: (f.to("meta"), g.to("meta")), "unsupported"),
+    "no_gaussians": (lambda f, g: (f[:0], g), "no gaussian"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACK_REJECTS))
+def test_pack_gather_rows_rejects_bad_inputs(binned, case):
+    make, match = PACK_REJECTS[case]
+    feat, gid = make(_t(binned["feat_n"]), _t(binned["gid"]))
+    with pytest.raises(ValueError, match=match):
+        tr.pack_gather_rows(feat, gid)
+
+
 # (alpha_clip, early_stop, zbuf)
 K2_CASES = {
     "clip999_es1e-4": (0.999, 1e-4, False),
