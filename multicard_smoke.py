@@ -25,7 +25,10 @@ each starting NCCL through ``init_distributed`` (a FileStore under
      every rank; the band step run twice from one start, bit for bit;
   3. times on rank 0 (every rank runs the same calls): frame and step
      medians by host clock, device busy and the NCCL kernels' share by
-     torch.profiler, each collective alone by CUDA events.
+     torch.profiler, each collective alone by CUDA events. These are the
+     checks' side readings at 1M splats and 1080p; the timed source of
+     4-card step times is the benchmark's ``sharded_4m_4k.band_step``
+     cell (``h100_bench/drivers/band.py``, ``h100_bench/run.py``).
 
 Each line names the rank's card and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": D}}``.

@@ -24,12 +24,14 @@ a reduce_scatter (sum), all_reduce (sum) into an all_reduce.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from splatjax_torch import trace
 from splatjax_torch.camera import Camera
 from splatjax_torch.ops.binning import (
     TileConfig,
@@ -54,25 +56,29 @@ MAX_BANDS = 4
 
 # -- collectives with gradients ---------------------------------------------
 
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """The all_to_all itself, with no gradient: block d of ``x`` to rank d.
+    :class:`_AllToAll` and :class:`_Redistribute` both run it, each way."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
+        return _exchange(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
+        return _exchange(g, ctx.group), None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, bwd_span):
+        ctx.group, ctx.bwd_span = group, bwd_span
         n = dist.get_world_size(group)
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -80,11 +86,13 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g.contiguous(),
-                                   op=dist.ReduceOp.SUM, group=ctx.group)
-        return out, None
+        span = ctx.bwd_span
+        with trace.span(span) if span else contextlib.nullcontext():
+            n = dist.get_world_size(ctx.group)
+            out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
+            dist.reduce_scatter_tensor(out, g.contiguous(),
+                                       op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -111,7 +119,14 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` stacked along dim 0 in rank order. Backward: the
     cotangent's block d summed over ranks (reduce_scatter) to rank d."""
-    return _AllGather.apply(x, group)
+    return _AllGather.apply(x, group, None)
+
+
+def _gather_band_tiles(out_tiles: torch.Tensor, group) -> torch.Tensor:
+    """Every band's tiles on every rank: :func:`all_gather` as the span
+    ``sj.band_gather``, its reduce_scatter as ``sj.band_gather_bwd``."""
+    with trace.span("sj.band_gather"):
+        return _AllGather.apply(out_tiles, group, "sj.band_gather_bwd")
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -120,27 +135,34 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduce.apply(x, group)
 
 
-class _SendRows(torch.autograd.Function):
+class _Redistribute(torch.autograd.Function):
     """The send buffer's row gather ``packed[src]`` (zero where not
-    ``valid``) with a backward that sums each gaussian's copies in a fixed
-    order: gaussian g's copy j sits at buffer row ``pos[j, g]`` (-1 where
-    it was not sent), added j = 0, 1, ... . A gather with no atomics, so
-    the gradient's bits repeat run to run."""
+    ``valid``) and its all_to_all, with a backward that takes the reverse
+    all_to_all and sums each gaussian's copies in a fixed order: gaussian
+    g's copy j sits at buffer row ``pos[j, g]`` (-1 where it was not
+    sent), added j = 0, 1, ... . A gather with no atomics, so the
+    gradient's bits repeat run to run. The backward is the
+    ``sj.redistribute_bwd`` span."""
 
     @staticmethod
-    def forward(ctx, packed, src, valid, pos):
+    def forward(ctx, packed, src, valid, pos, group):
         ctx.save_for_backward(pos)
-        return packed.index_select(0, src).masked_fill_(~valid[:, None], 0.0)
+        ctx.group = group
+        send = packed.index_select(0, src).masked_fill_(~valid[:, None], 0.0)
+        return _exchange(send, group)
 
     @staticmethod
     def backward(ctx, g):
         (pos,) = ctx.saved_tensors
         out = None
-        for j in range(pos.shape[0]):
-            rows = g.index_select(0, pos[j].clamp_min(0)).masked_fill_(
-                (pos[j] < 0)[:, None], 0.0)
-            out = rows if out is None else out + rows
-        return out, None, None, None
+        with trace.span("sj.redistribute_bwd"):
+            g_send = _exchange(g, ctx.group)
+            for j in range(pos.shape[0]):
+                rows = g_send.index_select(
+                    0, pos[j].clamp_min(0)).masked_fill_(
+                        (pos[j] < 0)[:, None], 0.0)
+                out = rows if out is None else out + rows
+        return out, None, None, None, None
 
 
 # -- layout -------------------------------------------------------------------
@@ -275,13 +297,15 @@ def _assemble_band_tiles(tiles_all: torch.Tensor, bounds: torch.Tensor,
 
 # -- the band body ------------------------------------------------------------
 
-def _send_buffer(packed, r0, r1, on, my, bounds, *, n_dev: int,
-                 n_rows: int, tile_h: int, pair_capacity: int,
-                 max_bands: int):
-    """The (D * pair_capacity, 13) all_to_all send buffer and the (D,)
-    rows each destination band loses here: past its block's capacity, and
-    (exactly) every band of a gaussian's span outside its ``max_bands``
-    window centred on the band of its mean."""
+def _redistribute(packed, r0, r1, on, my, bounds, *, group, n_dev: int,
+                  n_rows: int, tile_h: int, pair_capacity: int,
+                  max_bands: int):
+    """Ship each projected gaussian to the bands its rows reach: the
+    (D * pair_capacity, 13) all_to_all send buffer, exchanged. Returns the
+    rows received (block s from rank s) and the (D,) rows each destination
+    band loses here: past its block's capacity, and (exactly) every band
+    of a gaussian's span outside its ``max_bands`` window centred on the
+    band of its mean."""
     dev = packed.device
     n_loc = packed.shape[0]
     i32 = torch.int32
@@ -306,6 +330,8 @@ def _send_buffer(packed, r0, r1, on, my, bounds, *, n_dev: int,
     idx = seg[:-1, None] + torch.arange(pair_capacity, device=dev)[None, :]
     src = e_sorted[idx.clamp(max=n_e - 1)] % n_loc
     valid = idx < seg[1:, None]
+    if trace.recording():
+        trace.count(pair_rows=valid.sum(), pair_capacity_rows=valid.numel())
     # buffer row of every (window slot, gaussian) pair, for the backward
     rank_e = torch.empty_like(e_sorted).scatter_(
         0, e_sorted, torch.arange(n_e, device=dev))
@@ -313,7 +339,8 @@ def _send_buffer(packed, r0, r1, on, my, bounds, *, n_dev: int,
     sent = (dest < n_dev) & (slot < pair_capacity)
     pos = torch.where(sent, dest.long() * pair_capacity + slot,
                       -1).reshape(max_bands, n_loc)
-    send = _SendRows.apply(packed, src.reshape(-1), valid.reshape(-1), pos)
+    received = _Redistribute.apply(packed, src.reshape(-1),
+                                   valid.reshape(-1), pos, group)
 
     pair_drop = (seg[1:] - seg[:-1] - pair_capacity).clamp_min(0)
     band_ids = torch.arange(n_dev, dtype=i32, device=dev)[:, None]
@@ -321,7 +348,7 @@ def _send_buffer(packed, r0, r1, on, my, bounds, *, n_dev: int,
             & (band_ids >= b0[None, :]) & (band_ids <= b1[None, :])
             & ((band_ids < w0[None, :])
                | (band_ids >= (w0 + max_bands)[None, :])))
-    return send, pair_drop + lost.sum(dim=1)
+    return received, pair_drop + lost.sum(dim=1)
 
 
 def _band_render_body(
@@ -379,10 +406,11 @@ def _band_render_body(
     elif redistribute == "all_to_all":
         max_bands = min(n_dev, MAX_BANDS if balance != "load"
                         else 2 * MAX_BANDS)
-        send, pair_drop = _send_buffer(
-            packed, r0, r1, on, my, bounds, n_dev=n_dev, n_rows=n_rows,
-            tile_h=tile_h, pair_capacity=pair_capacity, max_bands=max_bands)
-        packed_all = all_to_all(send, group)          # (D * cap, 13)
+        with trace.span("sj.redistribute"):
+            packed_all, pair_drop = _redistribute(    # (D * cap, 13)
+                packed, r0, r1, on, my, bounds, group=group, n_dev=n_dev,
+                n_rows=n_rows, tile_h=tile_h, pair_capacity=pair_capacity,
+                max_bands=max_bands)
     else:
         raise ValueError("redistribute must be 'all_to_all' or "
                          f"'all_gather', got {redistribute!r}")
@@ -475,8 +503,8 @@ def render_sharded(
         alpha_clip=alpha_clip, early_stop=early_stop,
         redistribute=redistribute, balance=balance,
     )
-    img = _assemble_band_tiles(all_gather(out_tiles, ag.group), bounds,
-                               cfg_band, n_rows, camera.height)
+    img = _assemble_band_tiles(_gather_band_tiles(out_tiles, ag.group),
+                               bounds, cfg_band, n_rows, camera.height)
     if return_overflow:
         return img, all_gather(my_drop.reshape(1), ag.group)
     return img

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from splatjax_torch import trace
 from splatjax_torch.camera import Camera
 from splatjax_torch.ops.binning import TileConfig
 from splatjax_torch.parallel.dist_render import (
@@ -27,7 +28,7 @@ from splatjax_torch.parallel.dist_render import (
     _band_layout,
     _band_render_body,
     _default_pair_capacity,
-    all_gather,
+    _gather_band_tiles,
     all_reduce,
 )
 from splatjax_torch.parallel.mesh import axis_group, mesh_group
@@ -41,13 +42,14 @@ def reduce_gradients(params: TrainableGaussians, group, divisor: int
     """Sum every leaf's gradient over ``group`` in one all_reduce and
     divide by ``divisor``, in place; the result is bit-identical on every
     rank."""
-    grads = [p.grad for p in params.parameters()]
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-    flat = flat / divisor
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    with trace.span("sj.grad_reduce"):
+        grads = [p.grad for p in params.parameters()]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+        flat = flat / divisor
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
 def make_dp_band_train_step(
@@ -87,6 +89,10 @@ def make_dp_band_train_step(
     cfg_band = TileConfig(w, band_rows * tile_size, tile_size, tile_size)
 
     def one_step(params, opt, mvs, prs, targets):
+        with trace.root("sj.step"):
+            return _one_step(params, opt, mvs, prs, targets)
+
+    def _one_step(params, opt, mvs, prs, targets):
         target = targets[view.index]
         n_loc = params.num_gaussians // band.size
         pc = pair_capacity or _default_pair_capacity(n_loc, band.size)
@@ -108,7 +114,7 @@ def make_dp_band_train_step(
             early_stop=cfg.early_stop, redistribute=redistribute,
             packed16=cfg.feature_bytes == 16, balance=balance,
         )
-        img = _assemble_band_tiles(all_gather(out_tiles, band.group),
+        img = _assemble_band_tiles(_gather_band_tiles(out_tiles, band.group),
                                    bounds, cfg_band, n_rows, h)
         loss = combined_loss(img, target, ssim_weight=cfg.ssim_weight)
         loss.backward()

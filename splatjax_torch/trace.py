@@ -67,6 +67,12 @@ def _new_record(name: Optional[str]) -> Record:
     return rec
 
 
+def recording() -> bool:
+    """True while a profiler records on the calling thread: a caller that
+    would launch work only to count it tests this first."""
+    return _recording()
+
+
 def span(name: str):
     """A context manager that annotates its body as ``name`` while a
     profiler records."""
